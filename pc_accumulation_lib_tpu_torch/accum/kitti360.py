@@ -1,0 +1,371 @@
+"""KITTI-360 accumulator: 1 forward camera + 360-degree lidar, ICP
+ego-motion, and the step() path that integrates frames and generates
+augmented BEV samples.
+
+Counterpart of accum/kitti360.py. Each frame runs one integrate function
+on the device (dequant, ICP preprocess + register, pose chain, semseg,
+camera or GT paint, compact_rows, ring insert, eviction window, raster
+pose parameters) that reads and writes the accumulator's device state in
+place. The pose chain, the eviction window and the raster's pose
+parameters stay on the device between frames; the host reads one packed
+(37,) vector per frame for its bookkeeping, inside step()'s finalize.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pc_accumulation_lib_tpu_torch import config as cfg
+from pc_accumulation_lib_tpu_torch.accum import buffer
+from pc_accumulation_lib_tpu_torch.accum.base import (
+    SemanticPointCloudAccumulator)
+from pc_accumulation_lib_tpu_torch.ops import geometry
+from pc_accumulation_lib_tpu_torch.ops import icp as icp_ops
+
+
+def window_update(seg_ring, ws, T_world, T_world_prev, frame_id: int,
+                  horizon: float, first: bool):
+    """Device mirror of the host memory-horizon eviction: write this
+    frame's path segment into ``seg_ring`` (in place, slot frame_id % R),
+    then advance the window start past the horizon (the first index where
+    the cumulative path exceeds the overshoot).
+
+    Returns (new window start, pre-eviction path length, ring_overflow).
+    ring_overflow = 1 means this frame's write overwrote a segment still
+    inside the live window (it spans more than R frames), so the host
+    raises."""
+    zero = torch.zeros((), dtype=torch.float32, device=seg_ring.device)
+    if first:
+        return ws, zero, zero
+    R = seg_ring.shape[0]
+    overflow = (frame_id - ws > R).to(torch.float32)
+    seg_ring[frame_id % R] = torch.linalg.vector_norm(
+        T_world[:3, 3] - T_world_prev[:3, 3])
+    gids = ws + 1 + torch.arange(R, dtype=torch.int32, device=ws.device)
+    live = gids <= frame_id
+    segs = torch.where(live, seg_ring[torch.remainder(gids, R)], 0.0)
+    path = segs.sum()
+    cond = (torch.cumsum(segs, 0) - (path - horizon) > 0.) & live
+    first_true = torch.argmax(cond.to(torch.int32)).to(torch.int32)
+    idx = torch.where(path > horizon, first_true, 0)
+    return ws + idx, path, overflow
+
+
+def pose_params_vec(T_world, T_world_prev, ws, frame_id: int):
+    """(22,) pose half of the raster parameters for the 'latest-1' present
+    policy: [T_ref_world(16), bev_coords(3), window_min, window_max,
+    present_frame]. T_ref_world is the rigid inverse in float32: a general
+    inverse loses ~0.4 m at 100 m of travel."""
+    R, t = T_world[:3, :3], T_world[:3, 3]
+    bev_coords = R.T @ (T_world_prev[:3, 3] - t)
+    f = torch.full((), float(frame_id), dtype=torch.float32,
+                   device=T_world.device)
+    return torch.cat([geometry.rigid_inverse(T_world).reshape(-1),
+                      bev_coords,
+                      torch.stack([ws.to(torch.float32), f, f - 1.0])])
+
+
+class DeviceObs(NamedTuple):
+    """An uploaded observation (upload_obs): ``aux`` is the camera image
+    (camera path) or the padded per-point GT labels (GT path);
+    ``rgb_host`` keeps the host image for the frame bookkeeping."""
+    rgb_host: object
+    pc_pad: torch.Tensor
+    valid: torch.Tensor
+    aux: torch.Tensor
+
+
+class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
+
+    def __init__(self, horizon_dist: float, calib_params: dict,
+                 icp_threshold: float, semseg_model=None,
+                 semseg_filters=cfg.DEFAULT_SEMSEG_FILTERS,
+                 sem_idxs: Optional[dict] = None, use_gt_sem: bool = False,
+                 bev_params: Optional[dict] = None,
+                 accum_cfg: Optional[cfg.AccumConfig] = None,
+                 icp_cfg: Optional[cfg.ICPConfig] = None,
+                 seed: Optional[int] = None,
+                 transfer_dtype: str = 'float32',
+                 img_transfer: Optional[str] = None, *, device):
+        """Arguments as the JAX package's, plus ``device``. ``semseg_model``
+        is a models.semseg.SemSegTorch on the same device.
+        ``transfer_dtype='quantized'`` uploads points packed at 7 B/point
+        (xyz as 5 mm int16, intensity as uint8 at the same x200 scale) and
+        the image as uint8, decoded on the device."""
+        super().__init__(horizon_dist, icp_threshold, semseg_model,
+                         semseg_filters, sem_idxs, use_gt_sem, bev_params,
+                         accum_cfg, seed, device=device)
+        if img_transfer not in (None, 'rgb8'):
+            raise NotImplementedError(
+                f"img_transfer={img_transfer!r}: the port uploads 'rgb8'")
+        if self.accum_cfg.compact_rungs:
+            raise NotImplementedError('AccumConfig.compact_rungs: the port '
+                                      'sweeps compact_cap rows')
+        if not self.accum_cfg.compact_cap:
+            raise NotImplementedError(
+                'AccumConfig.compact_cap is unset: the port rasters only the '
+                'compacted live window; set compact_cap')
+        if transfer_dtype not in ('float32', 'quantized'):
+            raise ValueError(f'transfer_dtype={transfer_dtype!r}')
+        self.transfer_dtype = transfer_dtype
+        self.P_velo_frame = torch.as_tensor(
+            np.asarray(calib_params['p_velo_frame'], np.float32),
+            device=self.device)
+        self.icp_cfg = icp_cfg or cfg.ICPConfig(max_corr_dist=icp_threshold)
+        self._icp_pre = icp_ops.make_preprocess_fn(
+            self.icp_cfg.max_downsampled, self.icp_cfg.normal_neighbors)
+        if self.icp_cfg.coarse_to_fine:
+            self._icp_reg = icp_ops.make_coarse_to_fine_register_fn(
+                self.icp_cfg.num_iters,
+                coarse_factor=self.icp_cfg.coarse_factor)
+        else:
+            self._icp_reg = icp_ops.make_register_fn(self.icp_cfg.num_iters)
+        self._icp_prev_cloud = None
+        self._T_world_velo_last = np.eye(4)
+        self._T_new_prev_last = np.eye(4)
+        # Device state threaded between frames (set at the first frame).
+        self._T_world_dev = None
+        self._T_new_prev_dev = None
+        self._seg_ring_dev = None    # seg_ring[g % F]: segment ending at g
+        self._ws_dev = None          # window start, 0-d int32
+        self._pose_vec_dev = None    # (22,) raster pose parameters
+        self.max_live_rows = 0       # compact_window telemetry (step())
+
+    # ------------------------------------------------------------------
+    # Upload
+    # ------------------------------------------------------------------
+    def _pad_pc(self, pc: np.ndarray):
+        """Host padding (and quantized packing) of one (N,4) cloud to
+        max_points_per_frame rows. Returns numpy (pc_pad, valid)."""
+        n_cap = self.accum_cfg.max_points_per_frame
+        n = pc.shape[0]
+        if n > n_cap:
+            raise RuntimeError(
+                f'Frame has {n} points > max_points_per_frame={n_cap}; '
+                'raise AccumConfig.max_points_per_frame.')
+        if self.transfer_dtype == 'quantized':
+            xyz = np.zeros((n_cap, 3), np.int16)
+            xyz_scaled = np.round(pc[:, :3] * 200.0)
+            if n and (xyz_scaled.min() < -32768 or xyz_scaled.max() > 32767):
+                raise ValueError(
+                    f'quantized upload: coordinate range '
+                    f'[{pc[:, :3].min():.4g}, {pc[:, :3].max():.4g}] m '
+                    f'outside the i16-representable +-163.84 m')
+            xyz[:n] = xyz_scaled
+            inten = np.zeros(n_cap, np.uint8)
+            scaled = np.round(pc[:n, 3] * 200.0)
+            if n and (scaled.min() < 0 or scaled.max() > 255):
+                raise ValueError(
+                    f'quantized upload: intensity range '
+                    f'[{pc[:n, 3].min():.4g}, {pc[:n, 3].max():.4g}] '
+                    f'outside the u8-representable [0, 1.275]')
+            inten[:n] = scaled
+            out = np.concatenate([xyz.view(np.uint8).reshape(-1), inten])
+        else:
+            out = np.zeros((n_cap, pc.shape[1]), np.float32)
+            out[:n] = pc
+        return out, np.arange(n_cap) < n
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == 'cuda':
+            # Pinned staging copy, so the upload is asynchronous.
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def upload_obs(self, obs) -> DeviceObs:
+        """Start the host->device upload of one (rgb, pc, sem_gt)
+        observation; integrate/step accept the result in its place."""
+        if isinstance(obs, DeviceObs):
+            return obs
+        rgb, pc, sem_gt = obs
+        pc = np.asarray(pc, np.float32)
+        pc_pad, valid = self._pad_pc(pc)
+        if self.use_gt_sem or self.semseg_model is None:
+            aux = np.zeros(self.accum_cfg.max_points_per_frame, np.float32)
+            aux[:pc.shape[0]] = np.asarray(sem_gt).reshape(-1)
+        else:
+            dt = np.uint8 if self.transfer_dtype == 'quantized' \
+                else np.float32
+            aux = np.asarray(rgb)[..., :3].astype(dt)
+        return DeviceObs(rgb, self._to_device(pc_pad),
+                         self._to_device(valid), self._to_device(aux))
+
+    # ------------------------------------------------------------------
+    # Per-frame device work
+    # ------------------------------------------------------------------
+    def _dequant(self, pc_pad):
+        if pc_pad.dtype != torch.uint8:
+            return pc_pad
+        n_cap = self.accum_cfg.max_points_per_frame
+        xyz = pc_pad[:6 * n_cap].view(torch.int16).reshape(n_cap, 3)
+        inten = pc_pad[6 * n_cap:]
+        return torch.cat([xyz.to(torch.float32),
+                          inten.to(torch.float32)[:, None]], 1) * (1.0 / 200.0)
+
+    @torch.no_grad()
+    def _integrate_frame(self, pc_pad, valid, aux, frame_id: int,
+                         first: bool):
+        """One frame's device work; updates the device state in place and
+        returns the packed (37,) vector [T_world_velo(16), T_new_prev(16),
+        n_painted, icp_n_corr, window_start, path_len, ring_overflow]."""
+        dev = self.device
+        pc = self._dequant(pc_pad)
+        new_cloud = self._icp_pre(pc[:, :3], valid)
+        if first:
+            T_new_prev = torch.eye(4, dtype=torch.float32, device=dev)
+            n_corr = torch.zeros((), dtype=torch.float32, device=dev)
+        else:
+            init = (self._T_new_prev_dev if self.icp_cfg.warm_start
+                    else torch.eye(4, dtype=torch.float32, device=dev))
+            T_new_prev, _, n_corr = self._icp_reg(
+                self._icp_prev_cloud, new_cloud, init,
+                self.icp_cfg.max_corr_dist)
+        T_world_prev = self._T_world_dev
+        T_world = T_world_prev @ geometry.rigid_inverse(T_new_prev)
+        filters = self.semseg_filters
+        if self.use_gt_sem or self.semseg_model is None:
+            painted, valid_out = buffer.paint_frame_gt(pc, valid, aux,
+                                                       T_world, filters)
+        else:
+            rgb_img = aux.to(torch.float32)
+            semseg = self.semseg_model.predict(rgb_img[None])[0]
+            painted, valid_out = buffer.paint_frame_camera(
+                pc, valid, rgb_img, semseg, self.P_velo_frame, T_world,
+                filters)
+        painted, valid_out, n_valid = buffer.compact_rows(
+            painted, valid_out, self.accum_cfg.painted_cap)
+        buffer.insert_frame(self.state, painted, valid_out, frame_id)
+        ws_new, path, ring_ovf = window_update(
+            self._seg_ring_dev, self._ws_dev, T_world, T_world_prev,
+            frame_id, float(self.horizon_dist), first)
+        self._pose_vec_dev = pose_params_vec(T_world, T_world_prev, ws_new,
+                                             frame_id)
+        self._icp_prev_cloud = new_cloud
+        self._T_world_dev = T_world
+        self._T_new_prev_dev = T_new_prev
+        self._ws_dev = ws_new
+        return torch.cat([
+            T_world.reshape(-1), T_new_prev.reshape(-1),
+            torch.stack([n_valid.to(torch.float32), n_corr,
+                         ws_new.to(torch.float32), path, ring_ovf])])
+
+    def _dispatch_obs(self, obs):
+        """Queue one observation's device work; returns a zero-arg closure
+        that waits for its packed vector and does the host bookkeeping."""
+        rgb, pc_pad, valid, aux = self.upload_obs(obs)
+        first = self._icp_prev_cloud is None
+        if first:
+            dev = self.device
+            self._T_world_dev = torch.as_tensor(
+                self._T_world_velo_last, dtype=torch.float32, device=dev)
+            self._T_new_prev_dev = torch.as_tensor(
+                self._T_new_prev_last, dtype=torch.float32, device=dev)
+            self._seg_ring_dev = torch.zeros(
+                (self.accum_cfg.max_frames,), dtype=torch.float32,
+                device=dev)
+            self._ws_dev = torch.full((), self.window_start,
+                                      dtype=torch.int32, device=dev)
+        packed = self._integrate_frame(pc_pad, valid, aux, self.frame_count,
+                                       first)
+        self.frame_count += 1     # frame id reserved at dispatch
+        packed_host = packed.to('cpu', non_blocking=True)
+        landed = None
+        if self.device.type == 'cuda':
+            landed = torch.cuda.Event()
+            landed.record(torch.cuda.current_stream(self.device))
+
+        def fetch():
+            if landed is not None:
+                landed.synchronize()
+            vec = packed_host.numpy().astype(np.float64)
+            T_world_velo = vec[:16].reshape(4, 4)
+            T_new_prev = vec[16:32].reshape(4, 4)
+            n_painted = int(vec[32])
+            if n_painted > self.accum_cfg.painted_cap:
+                raise RuntimeError(
+                    f'Painted-point overflow: frame produced {n_painted} > '
+                    f'cap {self.accum_cfg.painted_cap}; raise '
+                    'AccumConfig.max_painted_points_per_frame (points must '
+                    'not be silently dropped).')
+            if vec[36] != 0.0:
+                raise RuntimeError(
+                    'Eviction-ring overflow: the live memory-horizon window '
+                    f'spans more than max_frames={self.accum_cfg.max_frames} '
+                    'frames, so the device seg_ring would wrap and drop path '
+                    'segments. Raise AccumConfig.max_frames to cover '
+                    'horizon_dist at the slowest expected speed.')
+            self._T_world_velo_last = T_world_velo
+            self._T_new_prev_last = T_new_prev
+            self._append_frame_meta(T_world_velo, rgb, None)
+            if len(self.poses) > 1:
+                self.seg_dists.append(self.dist(
+                    np.array(self.poses[-1]), np.array(self.poses[-2])))
+            idx = int(vec[34]) - self.window_start
+            if idx > 0:
+                self.poses = self.poses[idx:]
+                self.seg_dists = self.seg_dists[idx:]
+                self.T_world_velo = self.T_world_velo[idx:]
+                self.rgbs = self.rgbs[idx:]
+                self.semsegs = self.semsegs[idx:]
+                self.window_start += idx
+            return idx
+
+        return fetch
+
+    # ------------------------------------------------------------------
+    # Entry points
+    # ------------------------------------------------------------------
+    def integrate(self, observations: list) -> int:
+        """Integrate observations [(rgb, pc, sem_gt) or DeviceObs, ...];
+        returns the number of evicted frames."""
+        handles = [self._dispatch_obs(obs) for obs in observations]
+        return sum(h() for h in handles)
+
+    def step(self, observations: list, bev_num: int = 1,
+             gen_future: bool = True) -> list:
+        """Integrate ``observations`` and generate ``bev_num`` augmented BEV
+        samples at the 'latest-1' present policy (present_idx =
+        len(poses) - 2). All device work is queued before the first host
+        wait. Returns the list of BEV dicts."""
+        gen = self.sem_bev_generator
+        handles = [self._dispatch_obs(obs) for obs in observations]
+        ccap = self.accum_cfg.compact_cap
+        # Once-per-step live-window compaction: every raster sweeps ccap
+        # rows instead of max_frames * painted_cap.
+        flat_pts, pt_fids, flat_valid, n_live = buffer.compact_window(
+            self.state, self._ws_dev, ccap)
+        n_live = n_live.to('cpu', non_blocking=True)
+        prepped = gen.prep_points(flat_pts, self.state.inst_dyn,
+                                  self._pose_vec_dev)
+
+        def trajs_fn():
+            # Runs after the integrate fetches have synced the host poses.
+            pi = len(self.poses) - 2
+            poses_ref = self._poses_ref(self._ref_transform())
+            bev_coords = poses_ref[pi]
+            trajs = {'ego_traj_present': poses_ref[:pi] - bev_coords,
+                     'other_trajs_present': []}
+            if gen_future:
+                trajs['ego_traj_future'] = poses_ref[pi:] - bev_coords
+                trajs['ego_traj_full'] = poses_ref - bev_coords
+                trajs['other_trajs_future'] = []
+                trajs['other_trajs_full'] = []
+            return trajs
+
+        bev_handle = gen.generate_samples_device(
+            flat_valid, pt_fids, self._pose_vec_dev, bev_num, gen_future,
+            trajs_fn, prepped)
+        for h in handles:
+            h()
+        bevs = bev_handle()     # waits for the device, n_live's copy too
+        nl = int(n_live)
+        self.max_live_rows = max(self.max_live_rows, nl)
+        if nl > ccap:
+            raise RuntimeError(
+                f'Live-window overflow: {nl} live buffer rows > the swept '
+                f'capacity compact_cap={ccap}; raise AccumConfig.compact_cap '
+                '(points must not be silently dropped).')
+        return bevs

@@ -1,0 +1,171 @@
+"""BEV raster for the accum.step() path, on tensors.
+
+Counterpart of bev/core.py's prepped raster with the dense float16 output:
+``make_prep_fn`` does the augmentation-invariant per-point work once per
+step (world -> BEV-reference transform, class masks, dyn partition, the two
+packed payload words), and each augmented sample then runs the prepped
+raster: in-plane rotate/translate, view and height masks, cell ids, the
+sort + segmented-stats kernel (ops/sort_raster), the dense warp, the
+road-marking transform and the cast to one (S*7, P, P) float16 stack.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pc_accumulation_lib_tpu_torch import config as cfg
+from pc_accumulation_lib_tpu_torch.ops import geometry as geo
+from pc_accumulation_lib_tpu_torch.ops import rasterize as ras
+from pc_accumulation_lib_tpu_torch.ops import sort_raster
+from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
+
+
+class RasterParams(NamedTuple):
+    """Per-sample raster parameters as device tensors (unpack_params)."""
+    T_ref_world: torch.Tensor   # (4,4) world -> BEV reference frame
+    bev_coords: torch.Tensor    # (3,) BEV origin in the reference frame
+    window_min: torch.Tensor    # first in-horizon global frame id
+    window_max: torch.Tensor    # last global frame id (inclusive)
+    present_frame: torch.Tensor  # frames < this are 'present'
+    rot_ang: torch.Tensor
+    trans_dx: torch.Tensor
+    trans_dy: torch.Tensor
+    zoom: torch.Tensor          # aug_view = zoom * view_size
+    warp_a1: torch.Tensor       # dense-warp column polynomial
+    warp_a2: torch.Tensor
+    warp_b1: torch.Tensor       # dense-warp row polynomial
+    warp_b2: torch.Tensor
+    height_thresh: torch.Tensor  # +inf = disabled
+
+
+def unpack_params(vec) -> RasterParams:
+    """View of a packed (31,) float32 parameter vector: pose_vec (22) ||
+    aug9 (rot, dx, dy, zoom, a1, a2, b1, b2, height_thresh)."""
+    s = vec[19:]
+    return RasterParams(
+        T_ref_world=vec[:16].reshape(4, 4), bev_coords=vec[16:19],
+        window_min=s[0].to(torch.int32), window_max=s[1].to(torch.int32),
+        present_frame=s[2].to(torch.int32), rot_ang=s[3], trans_dx=s[4],
+        trans_dy=s[5], zoom=s[6], warp_a1=s[7], warp_a2=s[8],
+        warp_b1=s[9], warp_b2=s[10], height_thresh=s[11])
+
+
+# Channel order inside the map stack, per split.
+_SPLIT_CHANNELS = ('road', 'intensity', 'rgb_r', 'rgb_g', 'rgb_b', 'dynamic',
+                   'elevation')
+
+
+def make_prep_fn(sem_idxs):
+    """Once-per-step point prep. fn(points (N,10), inst_dyn, pose_vec (22,))
+    -> (ref_xyz (N,3) f32, packed (N,) i32, packed2 (N,) i32); packed
+    carries the effective dyn partition in bit 26."""
+    road_ids = [sem_idxs['road']]
+    dyn_ids = [sem_idxs[nm] for nm in cfg.DYN_OBJ_CLASSES]
+
+    def prep(points, inst_dyn, pose_vec):
+        T_ref_world = pose_vec[:16].reshape(4, 4)
+        ref = geo.homo_transform(T_ref_world, points[:, :3]) - pose_vec[16:19]
+        sem = points[:, cfg.PT_SEM]
+        road_f = ras.sem_class_mask(sem, road_ids).to(torch.float32)
+        dyn_f = ras.sem_class_mask(sem, dyn_ids).to(torch.float32)
+        int_road = points[:, cfg.PT_I] * road_f
+        rgb = points[:, cfg.PT_R:cfg.PT_B + 1]
+        packed, packed2 = sort_raster.pack_payload_words(
+            road_f, dyn_f, rgb, int_road, ref[:, 2])
+        inst = points[:, cfg.PT_INST].clamp(0, inst_dyn.shape[0] - 1).to(
+            torch.int64)
+        dyn_eff = torch.maximum(points[:, cfg.PT_DYN], inst_dyn[inst])
+        packed = packed | ((dyn_eff == 1.0).to(torch.int32) << 26)
+        return ref, packed, packed2
+
+    return prep
+
+
+def make_prepped_raster_fn(view_size, pixel_size, int_scaler,
+                           int_sep_scaler, int_mid_threshold, rgb_fill=0):
+    """Per-sample raster over make_prep_fn outputs. fn(ref_xyz, valid,
+    pt_frame_ids, packed, packed2, (pose_vec (22,), aug9 (9,)),
+    gen_future) -> (S*7, P, P) float16 stack (S = 3 with gen_future, else
+    1), warped."""
+    P = pixel_size
+
+    def raster(ref_xyz, valid, pt_frame_ids, packed, packed2, pv_aug,
+               gen_future):
+        params = unpack_params(torch.cat(pv_aug))
+        t = geo.geometric_transform(ref_xyz, params.rot_ang,
+                                    params.trans_dx, params.trans_dy)
+        aug_view = params.zoom * view_size
+        in_window = ((pt_frame_ids >= params.window_min)
+                     & (pt_frame_ids <= params.window_max))
+        m = valid & in_window & geo.crop_view_mask(t, aug_view)
+        m &= t[:, 2] < params.height_thresh
+        static_m = m & (((packed >> 26) & 1) == 0)
+        grid = geo.pos2grid(t[:, :2], aug_view, P)
+        cells = geo.grid_cell_index(grid[:, 0], grid[:, 1], P)
+        cells = cells.clamp(0, P * P - 1)
+        present_m = pt_frame_ids < params.present_frame
+        nsplit = 2 if gen_future else 1
+        if gen_future:
+            base_m = static_m
+            key = cells * nsplit + (~present_m).to(torch.int32)
+        else:
+            base_m = static_m & present_m
+            key = cells
+        c2 = torch.where(base_m, key, P * P * nsplit).to(torch.int32)
+        chs = sort_raster.split_stats_from_packed(
+            c2, packed, packed2, P, gen_future, rgb_fill=rgb_fill)
+        meta = ['present', 'future', 'full'] if gen_future else ['present']
+        return _emit_outputs(chs, meta, params, P, int_scaler,
+                             int_sep_scaler, int_mid_threshold)
+
+    return raster
+
+
+def _emit_outputs(chs, meta, params, P, int_scaler, int_sep_scaler,
+                  int_mid_threshold):
+    """Channel dict -> warped, finalized (S*7, P, P) float16 stack."""
+    stack = []
+    for name in meta:
+        rgb = chs[f'rgb_{name}']
+        stack += [chs[f'road_{name}'], chs[f'intensity_{name}'], rgb[0],
+                  rgb[1], rgb[2], chs[f'dynamic_{name}'],
+                  chs[f'elevation_{name}']]
+    maps = warp_ops.warp_dense_maps(torch.stack(stack), params.warp_a1,
+                                    params.warp_a2, params.warp_b1,
+                                    params.warp_b2)
+    return finalize_dense(maps, len(meta), int_scaler, int_sep_scaler,
+                          int_mid_threshold)
+
+
+def finalize_dense(maps, n_splits, int_scaler, int_sep_scaler,
+                   int_mid_threshold):
+    """Road-marking transform on each split's intensity channel, then the
+    whole stack as one float16 tensor."""
+    n_ch = len(_SPLIT_CHANNELS)
+    final = []
+    for si in range(n_splits):
+        base = si * n_ch
+        final += [maps[base + 0],
+                  ras.road_marking_transform(maps[base + 1], int_scaler,
+                                             int_sep_scaler,
+                                             int_mid_threshold),
+                  *maps[base + 2:base + n_ch]]
+    return torch.stack(final).to(torch.float16)
+
+
+def unpack_maps(stack: np.ndarray, gen_future):
+    """(C,P,P) float16 stack -> {road,intensity,rgb,dynamic,elevation}_split
+    dict (rgb (3,P,P))."""
+    meta = ('present', 'future', 'full') if gen_future else ('present',)
+    n_ch = len(_SPLIT_CHANNELS)
+    out = {}
+    for si, name in enumerate(meta):
+        base = si * n_ch
+        out[f'road_{name}'] = stack[base + 0]
+        out[f'intensity_{name}'] = stack[base + 1]
+        out[f'rgb_{name}'] = stack[base + 2:base + 5]
+        out[f'dynamic_{name}'] = stack[base + 5]
+        out[f'elevation_{name}'] = stack[base + 6]
+    return out

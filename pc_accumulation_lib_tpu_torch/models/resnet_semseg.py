@@ -1,0 +1,165 @@
+"""ResNet-50 dilated FCN semantic segmentation model (nn.Module).
+
+Counterpart of models/resnet_semseg.py: dilated ResNet-50 v1c backbone
+(deep stem, output stride 8: stage 3 dilation 2, stage 4 dilation 4), FCN
+head 3x3x512 + 1x1 classifier, bilinear upsample to the input size.
+Public contract as in the JAX package: NHWC images in [0,255] in, NHWC
+float32 logits out. Module names give the mmsegmentation state-dict names
+(backbone.stem.0.weight, backbone.layer1.0.conv1.weight, ...,
+decode_head.convs.0.conv.weight, decode_head.conv_seg.weight), which is
+what pc_accumulation_lib_tpu.models.onnx_port.export_named_tensors emits.
+
+``compute_dtype`` sets the convolution precision (bfloat16 on the GPU);
+batch norms, ReLUs, residual adds and the classifier run in float32, as
+the JAX model does.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+NUM_CLASSES = 19
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+class _Conv(nn.Conv2d):
+    """Conv2d whose forward casts input and weight to a compute dtype."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        self.padding, self.dilation)
+
+
+class _BN(nn.BatchNorm2d):
+    """Eval-mode batch norm in float32."""
+
+    def forward(self, x):
+        return super().forward(x.to(torch.float32))
+
+
+class Bottleneck(nn.Module):
+    """ResNet v1 bottleneck with optional stride/dilation."""
+
+    def __init__(self, in_ch, features, stride, dilation, downsample, dt):
+        super().__init__()
+        self.conv1 = _Conv(in_ch, features, 1, bias=False, compute_dtype=dt)
+        self.bn1 = _BN(features)
+        self.conv2 = _Conv(features, features, 3, stride=stride,
+                           padding=dilation, dilation=dilation, bias=False,
+                           compute_dtype=dt)
+        self.bn2 = _BN(features)
+        self.conv3 = _Conv(features, features * 4, 1, bias=False,
+                           compute_dtype=dt)
+        self.bn3 = _BN(features * 4)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                _Conv(in_ch, features * 4, 1, stride=stride, bias=False,
+                      compute_dtype=dt),
+                _BN(features * 4))
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class _Backbone(nn.Module):
+    def __init__(self, stage_sizes, dt):
+        super().__init__()
+        stem = []
+        in_ch = 3
+        for f, s in ((32, 2), (32, 1), (64, 1)):
+            stem += [_Conv(in_ch, f, 3, stride=s, padding=1, bias=False,
+                           compute_dtype=dt), _BN(f), nn.ReLU()]
+            in_ch = f
+        self.stem = nn.Sequential(*stem)
+        in_ch = 64
+        stage_cfg = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))
+        for si, (feats, stride, dil) in enumerate(stage_cfg):
+            blocks = []
+            for bi in range(stage_sizes[si]):
+                blocks.append(Bottleneck(in_ch, feats,
+                                         stride if bi == 0 else 1, dil,
+                                         bi == 0, dt))
+                in_ch = feats * 4
+            setattr(self, f'layer{si + 1}', nn.Sequential(*blocks))
+
+    def forward(self, x):
+        x = F.max_pool2d(self.stem(x), 3, stride=2, padding=1)
+        for si in range(4):
+            x = getattr(self, f'layer{si + 1}')(x)
+        return x
+
+
+class _ConvModule(nn.Module):
+    def __init__(self, in_ch, out_ch, dt):
+        super().__init__()
+        self.conv = _Conv(in_ch, out_ch, 3, padding=1, bias=False,
+                          compute_dtype=dt)
+        self.bn = _BN(out_ch)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+class _FCNHead(nn.Module):
+    def __init__(self, num_classes, dt):
+        super().__init__()
+        self.convs = nn.Sequential(_ConvModule(2048, 512, dt))
+        self.conv_seg = _Conv(512, num_classes, 1,
+                              compute_dtype=torch.float32)
+
+    def forward(self, x):
+        return self.conv_seg(self.convs(x))
+
+
+class ResNet50DilatedFCN(nn.Module):
+    """Dilated ResNet-50 v1c backbone + FCN head, output stride 8."""
+
+    def __init__(self, num_classes: int = NUM_CLASSES,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.backbone = _Backbone(tuple(stage_sizes), compute_dtype)
+        self.decode_head = _FCNHead(num_classes, compute_dtype)
+        self.register_buffer('mean', torch.tensor(IMAGENET_MEAN),
+                             persistent=False)
+        self.register_buffer('std', torch.tensor(IMAGENET_STD),
+                             persistent=False)
+
+    def forward(self, images):
+        """images: (B,H,W,3) in [0,255]. Returns (B,H,W,num_classes)
+        float32 logits at the input resolution."""
+        x = (images.to(torch.float32) / 255.0 - self.mean) / self.std
+        x = x.permute(0, 3, 1, 2)
+        logits = self.decode_head(self.backbone(x)).to(torch.float32)
+        logits = F.interpolate(logits, size=images.shape[1:3],
+                               mode='bilinear', align_corners=False)
+        return logits.permute(0, 2, 3, 1)
+
+
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random init: conv weights N(0, 1/fan_in) (LeCun), classifier
+    bias 0, batch norms at identity (scale 1, shift 0, mean 0, var 1)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()

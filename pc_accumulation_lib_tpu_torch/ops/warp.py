@@ -1,0 +1,85 @@
+"""Polynomial BEV warping augmentation.
+
+Counterpart of ops/warp.py: the numpy host helpers (warp parameter draws
+and the trajectory warp) and the dense map warp on tensors, a separable
+gather with per-axis source-index maps.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def cal_warp_params(idx_0, idx_1, idx_max):
+    """Quadratic warp coefficients (a_1, a_2) through (0,0), (idx_max,
+    idx_max) and (idx_0, idx_1)."""
+    a_1 = (idx_1 - idx_0**2 / idx_max) / (idx_0 * (1.0 - idx_0 / idx_max))
+    a_2 = (1.0 - a_1) / idx_max
+    return a_1, a_2
+
+
+def get_random_warp_params(mean_ratio, max_ratio, I, J, rng):
+    """Random warp anchor (i_warp, j_warp) from a numpy Generator:
+    |N(mean, max)| clipped to max, random sign, offset from the middle.
+    Draws in the same order as the JAX package, so one seed gives the same
+    anchors."""
+    max_val = max_ratio * (I / 2.0)
+    mean_val = mean_ratio * max_val
+    i_warp = rng.normal(mean_val, max_val)
+    j_warp = rng.normal(mean_val, max_val)
+    if abs(i_warp) > max_val:
+        i_warp = max_val
+    if abs(j_warp) > max_val:
+        j_warp = max_val
+    if rng.random() < 0.5:
+        i_warp = -i_warp
+    if rng.random() < 0.5:
+        j_warp = -j_warp
+    return (int(I / 2) + i_warp, int(J / 2) + j_warp)
+
+
+def _poly_index_map(a_1, a_2, n):
+    """Source index for each destination index: clip(rint(a1*k + a2*k^2))
+    with 0-d tensor coefficients; clamped in float before the cast."""
+    k = torch.arange(n, dtype=torch.float32, device=a_1.device)
+    src = torch.round(a_1 * k + a_2 * k * k)
+    return src.clamp(0, n - 1).to(torch.int64)
+
+
+def warp_dense_maps(maps, a_1, a_2, b_1, b_2):
+    """Warp a stack of dense maps (C,I,J): B[:, jw, iw] = A[:, j(jw),
+    i(iw)], rows from the b-params and columns from the a-params."""
+    n_rows, n_cols = maps.shape[-2], maps.shape[-1]
+    rows = _poly_index_map(b_1, b_2, n_rows)
+    cols = _poly_index_map(a_1, a_2, n_cols)
+    return maps.index_select(-2, rows).index_select(-1, cols)
+
+
+def _inverse_quadratic(x, a_1, a_2):
+    """Closed-form inverse of y = a1*x + a2*x^2 (degenerate-case guard as
+    the reference)."""
+    x = np.asarray(x, np.float64)
+    disc = a_1 * a_1 + 4.0 * a_2 * x
+    inv = np.rint((-a_1 + np.sqrt(np.maximum(disc, 0.0)))
+                  / (2.0 * a_2 + 1e-30))
+    return np.where(abs(a_2) < 1e-6, x, inv)
+
+
+def warp_sparse_points(pnts, a_1, a_2, j_mid, j_warp, pixel_size):
+    """Warp (N,>=2) pixel-coordinate points: x by the a-params, y by
+    b-params recomputed from the reversed j anchor (the reference's axis
+    flip), int-rounded and clipped."""
+    b_1_rev, b_2_rev = cal_warp_params(pixel_size - j_warp, j_mid,
+                                       pixel_size - 1)
+    out = np.asarray(pnts).copy()
+    out[:, 0] = np.clip(_inverse_quadratic(out[:, 0], a_1, a_2), 0,
+                        pixel_size - 1)
+    out[:, 1] = np.clip(_inverse_quadratic(out[:, 1], b_1_rev, b_2_rev), 0,
+                        pixel_size - 1)
+    return out
+
+
+def warp_trajs(trajs, a_1, a_2, j_mid, j_warp, pixel_size):
+    """Warp a list of (N,3) pixel-space trajectories."""
+    return [warp_sparse_points(t, a_1, a_2, j_mid, j_warp, pixel_size)
+            if t.shape[0] > 0 else t for t in trajs]
