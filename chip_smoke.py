@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (pc_accumulation_lib_tpu_torch) on one
-NVIDIA GPU: builds the CUDA kernel from this checkout, checks it against
-its plain PyTorch version on made-up and adversarial rows, drives the
-KITTI-360 step() path at the bench configuration, checks the kernel again
-on the sorted rows one of that run's rasters gave it, and checks the GPU
-run against a CPU run at test size.
+NVIDIA GPU. It builds the CUDA kernels from this checkout and checks both
+(kernel 1 on the packed payload words, kernel 2 on unpacked float rows)
+against their plain PyTorch versions on made-up and adversarial rows. It
+drives the KITTI-360 step() path at the bench configuration and checks
+kernel 1 on the sorted rows one of its rasters gave it. It drives the
+KITTI-360 dataset runner's sampling_loop (integrate + generate_bev, the
+classic raster) at the runner's default configuration, writes and reads
+back its samples, holds the words route against the unpacked route
+(kernel 2) and both kernels against their plain versions on one of its
+rasters' rows, and the raster with the kernels against the raster
+without them on one of its samples. It drives the runner a second time
+with every raster's stats stage on the unpacked route (kernel 2) and
+holds its samples against the first run's. It checks a GPU run against a
+CPU run at test size, for step() and for the runner.
 
     python3 chip_smoke.py
 
@@ -15,11 +24,14 @@ does a machine without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -29,6 +41,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = 'pc_accumulation_lib_tpu_torch/csrc/segmented_stats.cu'
 KERNEL_REPLACES = 'pc_accumulation_lib_tpu/ops/pallas_stats.py:353'
+KERNEL2_REPLACES = 'pc_accumulation_lib_tpu/ops/pallas_stats.py:90'
 
 # Bench configuration (the JAX package's bench.py workload, without its
 # remote-link machinery): 376x1408 camera, ~121k points per frame,
@@ -50,8 +63,23 @@ BEV = dict(type='sem', view_size=80, pixel_size=256, max_trans_radius=3.0,
 BEV_NUM = 16
 N_STEPS = 9
 
-# Kernel-vs-plain tolerance: everything exact except the intensity sums.
+# The dataset runner at its run() defaults (runners/kitti360_bev_gen.py):
+# AccumConfig() (256 frames x 131,072 rows, so each sample's raster sweeps
+# 33,554,432 rows), ICPConfig(max_corr_dist=1e3), SamplingConfig() (80 m
+# behind and ahead, 1 m apart, 1 sample), the 80 m / 256 px BEV without
+# augmentation or warp, horizon 200 m, on 120 frames of the bench stream
+# (2 m apart). A sample's present pose is the first one 80 m along the
+# path from the window's oldest pose, so it moves, and samples follow one
+# per frame, only once the 200 m horizon evicts frames (~frame 101); 100
+# frames give one sample.
+RUNNER_FRAMES = 120
+RUNNER_MIN_SAMPLES = 10
+
+# Kernel-vs-plain tolerance: everything exact except the float sums.
 INTENSITY_RTOL = 1e-5
+# The raster with the kernels against the raster without them (bench.py's
+# --selftest gate): float16 stacks within 2e-3 max abs.
+SELFTEST_ATOL = 2e-3
 # GPU-vs-CPU step() tolerances (as the CPU parity tests hold the port to
 # the JAX package): poses 1e-4 m; BEV maps: fraction of cells differing by
 # more than 2e-2 below 0.02.
@@ -196,17 +224,10 @@ def _compare(ss, c2, w1, w2, G):
 def _time_pair(ss, c2, w1, w2, G):
     """Median ms of kernel and plain version on one input, timed in turns
     on this card: plain, kernel, kernel, plain."""
-    def plain():
-        return _median_ms(lambda: ss.segmented_stats_words_reference(
-            c2, w1, w2, G, med_nsplit=2))
-
-    def kern():
-        return _median_ms(lambda: ss.segmented_stats_words(
-            c2, w1, w2, G, med_nsplit=2))
-    p, k = [plain()], [kern(), kern()]
-    p.append(plain())
-    return dict(ms=statistics.median(k), plain_ms=statistics.median(p),
-                ms_runs=k, plain_ms_runs=p)
+    return _time_turns(
+        lambda: ss.segmented_stats_words(c2, w1, w2, G, med_nsplit=2),
+        lambda: ss.segmented_stats_words_reference(c2, w1, w2, G,
+                                                   med_nsplit=2))
 
 
 def _shape(c2, G):
@@ -226,6 +247,120 @@ def phase_kernel(dev):
                **_time_pair(ss, *cases['bench']), **_shape(
                    cases['bench'][0], cases['bench'][3]))
     emit('kernel_vs_plain', t0, **res)
+    return res
+
+
+def _sorted_keys(gen, n, G, keyed_lo, keyed_hi, sentinel_share):
+    keys = torch.randint(keyed_lo, keyed_hi, (n,), generator=gen)
+    keys = torch.where(torch.rand(n, generator=gen) < sentinel_share, G, keys)
+    return torch.sort(keys.to(torch.int32)).values
+
+
+def _kernel2_case(gen, keys, G, n_weights, n_values, med_nsplit, z=None):
+    """Kernel 2's inputs on ``keys``: the raster's weight rows (ones, road
+    and dyn flags, u16 intensity / 65535), f32 z, u8-valued rows."""
+    n = keys.numel()
+    flags = [(torch.rand(n, generator=gen) < p).to(torch.float32)
+             for p in (0.5, 0.2)]
+    inten = (torch.randint(0, 1 << 16, (n,), generator=gen).to(torch.float32)
+             * (1.0 / 65535.0))
+    weights = [torch.ones(n), *flags, inten][:n_weights]
+    z = torch.randn(n, generator=gen) * 3.0 if z is None else z
+    values = [torch.randint(0, 256, (n,), generator=gen).to(torch.float32)
+              for _ in range(n_values)]
+    return dict(sorted_keys=keys, weight_rows=weights, z_sorted=z,
+                num_groups=G, value_rows=values, med_nsplit=med_nsplit)
+
+
+def _kernel2_cases(dev):
+    gen = torch.Generator().manual_seed(1)
+    cases = {}
+    # Bench raster shape, as kernel 1's: 860,160 rows over ~7.7k occupied
+    # of 65,536 cells, 131,072 groups, a quarter of the rows sentinel.
+    n, cells, G = 860_160, 65_536, 131_072
+    occ = torch.randperm(cells, generator=gen)[:7_700]
+    c2 = (occ[torch.randint(0, occ.numel(), (n,), generator=gen)] * 2
+          + (torch.rand(n, generator=gen) < 0.35))
+    c2 = torch.where(torch.rand(n, generator=gen) < 0.25, G, c2)
+    cases['bench'] = _kernel2_case(gen, torch.sort(c2.to(torch.int32)).values,
+                                   G, 4, 3, 2)
+    # One group of more than 65,535 rows.
+    keys = torch.full((70_000,), 3, dtype=torch.int32)
+    keys[-100:] = 5
+    cases['large_group'] = _kernel2_case(gen, keys, 8, 4, 3, 2)
+    # Empty and single-row groups, negative, signed-zero and subnormal z.
+    keys = _sorted_keys(gen, 6000, 1024, 256, 768, 0.1)
+    keys[:8] = torch.arange(8, dtype=torch.int32) * 4 + 1
+    keys = torch.sort(keys).values
+    z = torch.randn(6000, generator=gen) * 3.0
+    tricky = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -1.4e-45,
+                           -7.5, 1.17549435e-38, -3.0e38, 3.0e38])
+    z[::9] = tricky.repeat(z[::9].numel() // tricky.numel() + 1)[
+        :z[::9].numel()]
+    cases['empty_groups_tricky_z'] = _kernel2_case(gen, keys, 1024, 4, 3, 2,
+                                                   z=z)
+    cases['all_sentinel'] = _kernel2_case(
+        gen, torch.full((5000,), 64, dtype=torch.int32), 64, 4, 3, 2)
+    keys = _sorted_keys(gen, 6000, 1024, 0, 1024, 0.1)
+    cases['one_weight_no_values'] = _kernel2_case(gen, keys, 1024, 1, 0, 1)
+    for ms in (0, 1):
+        cases[f'med_nsplit_{ms}'] = _kernel2_case(gen, keys, 1024, 4, 3, ms)
+    return {name: {k: ([t.to(dev) for t in v] if isinstance(v, list)
+                       else v.to(dev) if torch.is_tensor(v) else v)
+                   for k, v in case.items()}
+            for name, case in cases.items()}
+
+
+def _max_err2(got, ref, n_exact):
+    """Max abs difference over kernel 2's outputs after its contract:
+    counts and flags (the first ``n_exact`` weight rows), z-min and
+    medians exact, float sums within rtol 1e-5."""
+    check(len(got) == len(ref), (len(got), len(ref)))
+    sums, rsums = got[0], ref[0]
+    check(torch.equal(sums[:, :n_exact], rsums[:, :n_exact]),
+          'counts/flags differ')
+    check(torch.allclose(sums, rsums, rtol=INTENSITY_RTOL, atol=1e-6),
+          'float sums differ')
+    check(torch.equal(got[1], ref[1]), 'z-min differs')
+    fin = torch.isfinite(ref[1])
+    errs = [float((sums - rsums).abs().max()) if sums.numel() else 0.0,
+            float((got[1][fin] - ref[1][fin]).abs().max()) if fin.any()
+            else 0.0]
+    if len(got) == 3:
+        check(torch.equal(got[2], ref[2]), 'medians differ')
+        errs.append(float((got[2] - ref[2]).abs().max()))
+    return max(errs)
+
+
+def _compare2(ss, case):
+    got = ss.segmented_stats(**case)
+    ref = ss.segmented_stats_reference(**case)
+    torch.cuda.synchronize()
+    return _max_err2(got, ref, min(3, len(case['weight_rows'])))
+
+
+def _time_turns(kernel, plain):
+    """Median ms of a kernel and its plain version, timed in turns on this
+    card: plain, kernel, kernel, plain."""
+    p, k = [_median_ms(plain)], [_median_ms(kernel), _median_ms(kernel)]
+    p.append(_median_ms(plain))
+    return dict(ms=statistics.median(k), plain_ms=statistics.median(p),
+                ms_runs=k, plain_ms_runs=p)
+
+
+def phase_kernel2(dev):
+    """Kernel 2 (segmented_stats on unpacked rows) against its plain
+    version at the bench raster shape and on adversarial inputs."""
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    t0 = time.perf_counter()
+    cases = _kernel2_cases(dev)
+    errs = {name: _compare2(ss, case) for name, case in cases.items()}
+    bench = cases['bench']
+    res = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+               **_time_turns(lambda: ss.segmented_stats(**bench),
+                             lambda: ss.segmented_stats_reference(**bench)),
+               **_shape(bench['sorted_keys'], bench['num_groups']))
+    emit('kernel2_vs_plain', t0, **res)
     return res
 
 
@@ -290,9 +425,9 @@ def phase_main_path(dev):
     t0 = time.perf_counter()
     raster_in = []
 
-    def capture(c2, w1, w2, num_groups, med_nsplit):
+    def capture(c2, w1, w2, num_groups, med_nsplit, hist_medians=True):
         # Keeps the first call's inputs, then launches as the path does.
-        check(med_nsplit == 2, med_nsplit)
+        check(med_nsplit == 2 and hist_medians, (med_nsplit, hist_medians))
         if not raster_in:
             raster_in.extend((c2, w1, w2, num_groups))
         return ss.segmented_stats_words(c2, w1, w2, num_groups,
@@ -312,7 +447,7 @@ def phase_main_path(dev):
         before = ss.segmented_stats_words.launches
         if i == N_STEPS - 1:   # the last step, with the most live rows
             sort_raster.segmented_stats = types.SimpleNamespace(
-                segmented_stats_words=capture)
+                **{**vars(ss), 'segmented_stats_words': capture})
         ts = time.perf_counter()
         try:
             bevs = accum.step([f], bev_num=BEV_NUM, gen_future=True)
@@ -336,6 +471,290 @@ def phase_main_path(dev):
                occupied_cell_fraction=occ)
     emit('main_path', t0, **res)
     return res, raster_in
+
+
+def _runner_accum(dev, semseg, stream_cfg, bev, use_gt_sem, **kw):
+    """The accumulator as the runner's run() builds it, on the synthetic
+    stream's calibration; ``kw`` overrides run()'s defaults."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.accum.kitti360 import (
+        Kitti360SemanticPointCloudAccumulator)
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        make_calib)
+    _, H_velo_cam, P_cam_frame = make_calib(stream_cfg['img_hw'])
+    calib = dict(h_velo_cam=H_velo_cam, p_cam_frame=P_cam_frame,
+                 p_velo_frame=P_cam_frame @ H_velo_cam)
+    return Kitti360SemanticPointCloudAccumulator(
+        kw.pop('accum_horizon_dist', 200.0), calib, 1e3, semseg,
+        cfg.DEFAULT_SEMSEG_FILTERS, cfg.DEFAULT_SEM_IDXS, use_gt_sem, bev,
+        device=dev, **kw)
+
+
+def _read_samples(out_dir):
+    """{relative path: BEV dict} of the pkl.gz files a run wrote."""
+    from pc_accumulation_lib_tpu.utils.io import read_compressed_pickle
+    out = {}
+    for d, _, names in os.walk(out_dir):
+        for n in names:
+            path = os.path.join(d, n)
+            out[os.path.relpath(path, out_dir)] = read_compressed_pickle(path)
+    return out
+
+
+def _check_sample(b, P):
+    """15 float16 (P,P) / (3,P,P) maps, finite, and the trajectories."""
+    maps = {k: v for k, v in b.items() if not k.startswith('trajs')}
+    check(len(maps) == 15, sorted(maps))
+    for k, v in maps.items():
+        check(v.dtype == np.float16 and v.shape[-2:] == (P, P),
+              (k, v.dtype, v.shape))
+        check(np.isfinite(v).all(), k)
+    for s in ('present', 'future', 'full'):
+        trajs = b[f'trajs_{s}']
+        check(len(trajs) >= 1 and all(t.shape[-1] == 3 for t in trajs),
+              (s, [t.shape for t in trajs]))
+
+
+def phase_runner_path(dev, words_kernel=True, reference=None):
+    """The dataset runner's sampling_loop at run()'s defaults on 120 frames
+    of the bench stream: full-depth ResNet-50, every sample's classic
+    raster over the whole 256 x 131,072-row buffer. The stats stage takes
+    the words route (kernel 1), as run() does; with ``words_kernel`` False
+    every raster of the loop takes the unpacked route (kernel 2) instead.
+    ``reference``: samples of an earlier run, which these must match
+    (same files and keys, maps under the GPU-vs-CPU rule). Returns the
+    result, the samples read back, the (c2, packed, packed2, ...) one
+    raster gave the stats stage, and one raster's inputs."""
+    from pc_accumulation_lib_tpu.utils.async_writer import AsyncPickleWriter
+    from pc_accumulation_lib_tpu.utils.profiling import PhaseTimer
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    t0 = time.perf_counter()
+    stream = SyntheticKitti360Stream(n_frames=RUNNER_FRAMES, **STREAM)
+    accum = _runner_accum(dev, SemSegTorch(dev, seed=0), STREAM,
+                          dict(kr.DEFAULT_BEV_PARAMS), use_gt_sem=False)
+    gen = accum.sem_bev_generator
+    # frames: (start of its integrate, frames it evicted) per frame;
+    # sampled: the frame index of each stats-stage call (one per sample).
+    stats_in, raster_in, frames, sampled = [], [], [], []
+    split_stats = sort_raster.split_stats_from_words_flat
+    classic_raster = gen._raster
+    integrate = accum.integrate
+
+    def timed_integrate(observations):
+        t = time.perf_counter()
+        removed = integrate(observations)
+        frames.append((t, removed))
+        return removed
+
+    def capture_stats(*args, **kwargs):
+        # Keeps the latest call's inputs, then runs on the chosen route.
+        sampled.append(len(frames) - 1)
+        stats_in[:] = [args, kwargs]
+        return split_stats(*args, **{**kwargs, 'words_kernel': words_kernel})
+
+    def capture_raster(*args):
+        raster_in[:] = args
+        return classic_raster(*args)
+
+    timer = PhaseTimer()
+    P = kr.DEFAULT_BEV_PARAMS['pixel_size']
+    with tempfile.TemporaryDirectory() as out_dir:
+        output = cfg.OutputConfig(out_dir, viz_to_disk=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sort_raster.split_stats_from_words_flat = capture_stats
+        gen._raster = capture_raster
+        accum.integrate = timed_integrate
+        ss.segmented_stats_words.launches = 0
+        ss.segmented_stats.launches = 0
+        log = io.StringIO()
+        ts = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                stats = kr.sampling_loop(accum, stream, cfg.SamplingConfig(),
+                                         output, timer=timer)
+            torch.cuda.synchronize()
+        finally:
+            sort_raster.split_stats_from_words_flat = split_stats
+            gen._raster = classic_raster
+            del accum.integrate
+        t_end = time.perf_counter()
+        launches = ss.segmented_stats_words.launches
+        launches2 = ss.segmented_stats.launches
+        peak = torch.cuda.max_memory_allocated()
+        samples = _read_samples(out_dir)
+    n = stats['bevs']
+    check(stats['frames'] == RUNNER_FRAMES, stats)
+    check(n >= RUNNER_MIN_SAMPLES,
+          (stats, log.getvalue().splitlines()[-10:]))
+    check(len(samples) == n, (len(samples), n))
+    # One stats-kernel launch per sample, on the route this run takes.
+    expect = (n, 0) if words_kernel else (0, n)
+    check((launches, launches2) == expect, (launches, launches2, n))
+    for b in samples.values():
+        _check_sample(b, P)
+    phases = {k: dict(total_s=timer.totals[k], n=timer.counts[k])
+              for k in timer.totals}
+    # Steady state: from the first frame whose integrate evicts (the
+    # window at its 200 m horizon, as for the rest of a long drive) to the
+    # end of the loop. Also from the first sampled frame on, and the whole
+    # loop with its warm-up.
+    full = next(i for i, (_, removed) in enumerate(frames) if removed)
+    steady_n = sum(f >= full for f in sampled)
+    steady_s = t_end - frames[full][0]
+    from_first_s = t_end - frames[sampled[0]][0]
+    loop_s = t_end - ts
+    res = dict(route='words' if words_kernel else 'unpacked',
+               frames=stats['frames'], samples=n, launches=launches,
+               kernel2_launches=launches2, first_sample_frame=sampled[0],
+               first_evicting_frame=full, steady_samples=steady_n,
+               steady_s=steady_s, samples_per_s_steady=steady_n / steady_s,
+               samples_per_s_from_first_sample=n / from_first_s,
+               loop_s=loop_s, samples_per_s_with_warmup=n / loop_s,
+               samples_per_s_generate_bev=n / timer.totals['generate_bev'],
+               phases=phases, rows_per_raster=accum.state.valid.numel(),
+               window_frames=len(accum.poses),
+               window_path_m=float(accum.get_incremental_path_dists()[-1]),
+               max_memory_allocated_bytes=peak,
+               async_writer_native=AsyncPickleWriter().native,
+               files=sorted(samples)[:3])
+    if reference is not None:
+        mism, err = _map_mismatch(samples, reference)
+        res.update(vs_words_route_max_cell_mismatch_fraction=mism,
+                   vs_words_route_max_abs=err)
+        check(mism < MAP_MISMATCH, mism)
+    emit('runner_path' if words_kernel else 'runner_path_unpacked', t0,
+         **res)
+    return res, samples, stats_in, raster_in
+
+
+def _map_mismatch(a, b):
+    """Largest fraction, over the maps of two sample sets with the same
+    files and keys, of cells differing by more than MAP_ATOL, and the
+    largest abs difference."""
+    check(sorted(a) == sorted(b), (sorted(a), sorted(b)))
+    mism, err = 0.0, 0.0
+    for f, sa in a.items():
+        sb = b[f]
+        check(set(sa) == set(sb), f)
+        for k in sa:
+            if k.startswith('trajs'):
+                check(len(sa[k]) == len(sb[k]), (f, k))
+                continue
+            d = np.abs(sa[k].astype(np.float32) - sb[k].astype(np.float32))
+            mism = max(mism, float(np.mean(d > MAP_ATOL)))
+            err = max(err, float(d.max()))
+    return mism, err
+
+
+def phase_kernel2_on_runner_path(stats_in, rows):
+    """The stats stage of one runner raster, on the rows it got: the words
+    route (kernel 1) against the unpacked route (kernel 2), then each
+    kernel against its plain version on the sorted rows it gets there."""
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    t0 = time.perf_counter()
+    args, kwargs = stats_in
+    c2, n_cells, gen_future = args[0], args[3], args[4]
+    check(c2.numel() == rows, (c2.numel(), rows))
+    words = sort_raster.split_stats_from_words_flat(*args, **kwargs)
+    kernel2_in = []
+
+    def capture(**case):
+        kernel2_in.append(case)
+        return ss.segmented_stats(**case)
+
+    def route(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
+              med_nsplit):
+        return capture(sorted_keys=sorted_keys, weight_rows=weight_rows,
+                       z_sorted=z_sorted, num_groups=num_groups,
+                       value_rows=value_rows, med_nsplit=med_nsplit)
+
+    sort_raster.segmented_stats = types.SimpleNamespace(
+        **{**vars(ss), 'segmented_stats': route})
+    ss.segmented_stats.launches = 0
+    try:
+        unpacked = sort_raster.split_stats_from_words_flat(
+            *args, **{**kwargs, 'words_kernel': False})
+        torch.cuda.synchronize()
+    finally:
+        sort_raster.segmented_stats = ss
+    launches2 = ss.segmented_stats.launches
+    check(launches2 == 1, launches2)   # this replay's own launch
+    check(set(words) == set(unpacked), (sorted(words), sorted(unpacked)))
+    route_err = 0.0
+    for k, v in words.items():
+        if k.startswith('intensity'):
+            check(torch.allclose(unpacked[k], v, rtol=INTENSITY_RTOL,
+                                 atol=1e-7), k)
+        else:
+            check(torch.equal(unpacked[k], v), k)
+        route_err = max(route_err, float((unpacked[k] - v).abs().max()))
+    case = kernel2_in[0]
+    err2 = _compare2(ss, case)
+    t2 = _time_turns(lambda: ss.segmented_stats(**case),
+                     lambda: ss.segmented_stats_reference(**case))
+    keys = case['sorted_keys']
+    order = torch.sort(c2).indices
+    w1, w2 = args[1][order], args[2][order]
+    nsplit = 2 if gen_future else 1
+    err1 = _compare(ss, keys, w1, w2, n_cells * nsplit)
+    t1 = _time_pair(ss, keys, w1, w2, n_cells * nsplit)
+    res = dict(replay_kernel2_launches=launches2,
+               words_vs_unpacked_max_abs=route_err,
+               kernel2=dict(max_abs_err=err2, **t2),
+               kernel1=dict(max_abs_err=err1, **t1),
+               **_shape(keys, case['num_groups']))
+    emit('kernel2_on_runner_path', t0, **res)
+    return res
+
+
+def phase_selftest(raster_in):
+    """One runner sample's inputs through make_raster_fn with the kernels
+    and without them (use_kernel False: the 2-key sort route): the float16
+    stacks agree within 2e-3 max abs."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.bev import core
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    t0 = time.perf_counter()
+    b = kr.DEFAULT_BEV_PARAMS
+    stacks = [core.make_raster_fn(
+        b['view_size'], b['pixel_size'], cfg.DEFAULT_SEM_IDXS,
+        b['int_scaler'], b['int_sep_scaler'], b['int_mid_threshold'],
+        use_kernel=uk)(*raster_in) for uk in (True, False)]
+    torch.cuda.synchronize()
+    err = float((stacks[0].float() - stacks[1].float()).abs().max())
+    emit('selftest', t0, max_abs_err=err, atol=SELFTEST_ATOL,
+         shape=list(stacks[0].shape), rows=int(raster_in[0].shape[0]))
+    check(err <= SELFTEST_ATOL, err)
+
+
+def _small_runner(d, out_dir):
+    """A test-size sampling_loop on device ``d``; returns its counters and
+    samples."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    stream_cfg = dict(step=2.0, lidar_range=25.0, seed=3,
+                      points_per_frame=3000, img_hw=(188, 704))
+    accum = _runner_accum(
+        d, None, stream_cfg, dict(kr.DEFAULT_BEV_PARAMS), use_gt_sem=True,
+        accum_horizon_dist=30.0, seed=0,
+        accum_cfg=cfg.AccumConfig(max_points_per_frame=8192, max_frames=24),
+        icp_cfg=cfg.ICPConfig(max_downsampled=512, num_iters=8))
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = kr.sampling_loop(
+            accum, SyntheticKitti360Stream(n_frames=16, **stream_cfg),
+            cfg.SamplingConfig(8.0, 1.0, 2),
+            cfg.OutputConfig(out_dir, viz_to_disk=False))
+    return stats, _read_samples(out_dir)
 
 
 def phase_gpu_vs_cpu(dev):
@@ -374,11 +793,26 @@ def phase_gpu_vs_cpu(dev):
                     continue
                 d = np.abs(sg[k].astype(np.float32) - sc[k].astype(np.float32))
                 mism = max(mism, float(np.mean(d > MAP_ATOL)))
-    emit('gpu_vs_cpu', t0, max_pose_err_m=pose_err, pose_atol=POSE_ATOL,
-         max_cell_mismatch_fraction=mism, mismatch_limit=MAP_MISMATCH,
-         gpu_kernel_launches=gpu_launches)
     check(pose_err <= POSE_ATOL, pose_err)
     check(mism < MAP_MISMATCH, mism)
+    # The dataset runner's sampling_loop at test size on both devices.
+    runner = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in (dev, torch.device('cpu')):
+            before = ss.segmented_stats_words.launches
+            runner[d.type] = (*_small_runner(d, os.path.join(tmp, d.type)),
+                              ss.segmented_stats_words.launches - before)
+    (gst, gs, gl), (cst, cs, cl) = runner['cuda'], runner['cpu']
+    check(gst == cst and gst['bevs'] >= 4, (gst, cst))
+    check(sorted(gs) == sorted(cs), (sorted(gs), sorted(cs)))
+    check(gl == gst['bevs'] and cl == 0, (gl, cl))
+    runner_mism, _ = _map_mismatch(gs, cs)
+    emit('gpu_vs_cpu', t0, max_pose_err_m=pose_err, pose_atol=POSE_ATOL,
+         max_cell_mismatch_fraction=mism, mismatch_limit=MAP_MISMATCH,
+         gpu_kernel_launches=gpu_launches, runner_samples=gst['bevs'],
+         runner_max_cell_mismatch_fraction=runner_mism,
+         runner_gpu_kernel_launches=gl)
+    check(runner_mism < MAP_MISMATCH, runner_mism)
 
 
 def main():
@@ -390,16 +824,35 @@ def main():
     card = phase_env()
     phase_build()
     kern = phase_kernel(dev)
+    kern2 = phase_kernel2(dev)
     main_res, raster_in = phase_main_path(dev)
     on_path = phase_kernel_on_main_path(raster_in)
+    del raster_in
+    runner, samples, stats_in, runner_raster_in = phase_runner_path(dev)
+    on_runner = phase_kernel2_on_runner_path(stats_in,
+                                             runner['rows_per_raster'])
+    del stats_in
+    phase_selftest(runner_raster_in)
+    del runner_raster_in
+    runner2 = phase_runner_path(dev, words_kernel=False, reference=samples)[0]
+    del samples
     phase_gpu_vs_cpu(dev)
     print(card, flush=True)
-    print(json.dumps({'kernels': [{
-        'name': 'segmented_stats_words', 'route': 'cuda',
-        'source': KERNEL_SOURCE, 'replaces': KERNEL_REPLACES,
-        'launches': main_res['launches'],
-        'max_abs_err': max(kern['max_abs_err'], on_path['max_abs_err']),
-        'ms': on_path['ms'], 'plain_ms': on_path['plain_ms']}]}), flush=True)
+    print(json.dumps({'kernels': [
+        {'name': 'segmented_stats_words', 'route': 'cuda',
+         'source': KERNEL_SOURCE, 'replaces': KERNEL_REPLACES,
+         'launches': runner['launches'],
+         'max_abs_err': max(kern['max_abs_err'], on_path['max_abs_err'],
+                            on_runner['kernel1']['max_abs_err']),
+         'ms': on_runner['kernel1']['ms'],
+         'plain_ms': on_runner['kernel1']['plain_ms']},
+        {'name': 'segmented_stats', 'route': 'cuda',
+         'source': KERNEL_SOURCE, 'replaces': KERNEL2_REPLACES,
+         'launches': runner2['kernel2_launches'],
+         'max_abs_err': max(kern2['max_abs_err'],
+                            on_runner['kernel2']['max_abs_err']),
+         'ms': on_runner['kernel2']['ms'],
+         'plain_ms': on_runner['kernel2']['plain_ms']}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -8,13 +8,16 @@ device read path masks by frame id and never moves data.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from pc_accumulation_lib_tpu.utils.io import (read_compressed_pickle,
+                                              write_compressed_pickle)
 from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.accum import buffer
+from pc_accumulation_lib_tpu_torch.bev import core as bev_core
 from pc_accumulation_lib_tpu_torch.bev.sem_bev import SemBEVGenerator
 
 
@@ -84,6 +87,29 @@ class SemanticPointCloudAccumulator:
         self.semsegs.append(semseg)
 
     @staticmethod
+    def comp_incr_path_dist(seg_dists) -> np.ndarray:
+        """Cumulative path distances."""
+        return np.cumsum(np.asarray(seg_dists, np.float64))
+
+    def get_segment_dists(self) -> list:
+        return self.seg_dists
+
+    def get_incremental_path_dists(self) -> np.ndarray:
+        return self.comp_incr_path_dist(self.seg_dists)
+
+    def get_pose(self, idx: Optional[int] = None) -> np.ndarray:
+        """World-frame ego positions (all, or the one at ``idx``)."""
+        if idx is None:
+            return np.array(self.poses)
+        return np.array(self.poses[idx])
+
+    def get_rgb(self, idx: Optional[int] = None) -> list:
+        return self.rgbs if idx is None else [self.rgbs[idx]]
+
+    def get_semseg(self, idx: Optional[int] = None) -> list:
+        return self.semsegs if idx is None else [self.semsegs[idx]]
+
+    @staticmethod
     def dist(pose_0: np.ndarray, pose_1: np.ndarray) -> float:
         """Euclidean distance between poses."""
         return float(np.sqrt(np.sum((pose_1 - pose_0)**2)))
@@ -95,3 +121,58 @@ class SemanticPointCloudAccumulator:
     def _poses_ref(self, T_ref_world: np.ndarray) -> np.ndarray:
         poses = np.array(self.poses, np.float64).reshape(-1, 3)
         return poses @ T_ref_world[:3, :3].T + T_ref_world[:3, 3]
+
+    def _other_trajs(self, present_idx, gen_future):
+        """Non-ego trajectories (present, future, full); platforms with
+        object tracking override."""
+        return [], [], []
+
+    def _gt_lanes(self):
+        return None
+
+    def generate_bev(self, present_idx: Optional[int] = None,
+                     bev_num: int = 1, gen_future: bool = False,
+                     async_fetch: bool = False):
+        """``bev_num`` BEV dicts around pose ``present_idx`` (default: the
+        newest), rastered from the whole flat point buffer with the
+        classic raster; frames outside the window are masked by frame id.
+        With ``async_fetch`` returns a zero-arg callable yielding the list,
+        after all device work and copies are queued."""
+        n_frames = len(self.poses)
+        T_ref_world = self._ref_transform()
+        poses_ref = self._poses_ref(T_ref_world)
+        pi = n_frames if present_idx is None else present_idx
+        ref_idx = (n_frames - 1) if present_idx is None else present_idx
+        bev_coords = poses_ref[ref_idx]
+
+        trajs: Dict = {'ego_traj_present': poses_ref[:pi] - bev_coords}
+        other_p, other_f, other_full = self._other_trajs(pi, gen_future)
+        trajs['other_trajs_present'] = other_p
+        if gen_future:
+            trajs['ego_traj_future'] = poses_ref[pi:] - bev_coords
+            trajs['ego_traj_full'] = poses_ref - bev_coords
+            trajs['other_trajs_future'] = other_f
+            trajs['other_trajs_full'] = other_full
+        lanes = self._gt_lanes()
+        if lanes is not None:
+            trajs['gt_lanes'] = [
+                np.asarray(ln, np.float64) @ T_ref_world[:3, :3].T
+                + T_ref_world[:3, 3] - bev_coords for ln in lanes]
+
+        params = bev_core.identity_params(
+            T_ref_world=T_ref_world.astype(np.float32),
+            bev_coords=bev_coords.astype(np.float32),
+            window=(self.window_start, self.frame_count - 1),
+            present_frame=self.window_start + pi)
+        f, n, d = self.state.points.shape
+        return self.sem_bev_generator.generate_samples(
+            self.state.points.view(f * n, d), self.state.valid.view(f * n),
+            self.state.frame_ids.repeat_interleave(n), self.state.inst_dyn,
+            params, trajs, bev_num, gen_future, async_fetch=async_fetch)
+
+    write_compressed_pickle = staticmethod(write_compressed_pickle)
+    read_compressed_pickle = staticmethod(read_compressed_pickle)
+
+    def viz_bev(self, bev, file_path, rgbs: list = (), semsegs: list = ()):
+        self.sem_bev_generator.viz_bev(bev, file_path, list(rgbs),
+                                       list(semsegs))

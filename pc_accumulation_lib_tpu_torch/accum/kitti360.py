@@ -103,10 +103,6 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         if self.accum_cfg.compact_rungs:
             raise NotImplementedError('AccumConfig.compact_rungs: the port '
                                       'sweeps compact_cap rows')
-        if not self.accum_cfg.compact_cap:
-            raise NotImplementedError(
-                'AccumConfig.compact_cap is unset: the port rasters only the '
-                'compacted live window; set compact_cap')
         if transfer_dtype not in ('float32', 'quantized'):
             raise ValueError(f'transfer_dtype={transfer_dtype!r}')
         self.transfer_dtype = transfer_dtype
@@ -329,15 +325,32 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         """Integrate ``observations`` and generate ``bev_num`` augmented BEV
         samples at the 'latest-1' present policy (present_idx =
         len(poses) - 2). All device work is queued before the first host
-        wait. Returns the list of BEV dicts."""
+        wait. Returns the list of BEV dicts.
+
+        Without augmentation the rotation is heading-aligned, which needs
+        the host poses: step() is then integrate() followed by
+        generate_bev(present_idx=len(poses) - 2). With compact_cap unset
+        each raster sweeps the whole flat buffer instead of the compacted
+        live window."""
         gen = self.sem_bev_generator
+        if not gen.do_aug:
+            self.integrate(observations)
+            return self.generate_bev(present_idx=len(self.poses) - 2,
+                                     bev_num=bev_num, gen_future=gen_future)
         handles = [self._dispatch_obs(obs) for obs in observations]
         ccap = self.accum_cfg.compact_cap
-        # Once-per-step live-window compaction: every raster sweeps ccap
-        # rows instead of max_frames * painted_cap.
-        flat_pts, pt_fids, flat_valid, n_live = buffer.compact_window(
-            self.state, self._ws_dev, ccap)
-        n_live = n_live.to('cpu', non_blocking=True)
+        n_live = None
+        if ccap:
+            # Once-per-step live-window compaction: every raster sweeps
+            # ccap rows instead of max_frames * painted_cap.
+            flat_pts, pt_fids, flat_valid, n_live = buffer.compact_window(
+                self.state, self._ws_dev, ccap)
+            n_live = n_live.to('cpu', non_blocking=True)
+        else:
+            f, n, d = self.state.points.shape
+            flat_pts = self.state.points.view(f * n, d)
+            flat_valid = self.state.valid.view(f * n)
+            pt_fids = self.state.frame_ids.repeat_interleave(n)
         prepped = gen.prep_points(flat_pts, self.state.inst_dyn,
                                   self._pose_vec_dev)
 
@@ -361,6 +374,8 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         for h in handles:
             h()
         bevs = bev_handle()     # waits for the device, n_live's copy too
+        if n_live is None:
+            return bevs
         nl = int(n_live)
         self.max_live_rows = max(self.max_live_rows, nl)
         if nl > ccap:

@@ -1,12 +1,18 @@
-"""BEV raster for the accum.step() path, on tensors.
+"""BEV raster on tensors.
 
-Counterpart of bev/core.py's prepped raster with the dense float16 output:
-``make_prep_fn`` does the augmentation-invariant per-point work once per
-step (world -> BEV-reference transform, class masks, dyn partition, the two
-packed payload words), and each augmented sample then runs the prepped
-raster: in-plane rotate/translate, view and height masks, cell ids, the
-sort + segmented-stats kernel (ops/sort_raster), the dense warp, the
-road-marking transform and the cast to one (S*7, P, P) float16 stack.
+Counterpart of bev/core.py with the dense float16 output. Two forms:
+
+  * ``make_raster_fn``, the classic per-sample raster of the
+    integrate() + generate_bev() path: world -> BEV-reference transform,
+    rotate/translate/zoom, view and height masks, cell ids, the
+    static/dynamic partition and the time splits over the flat point
+    buffer, then the channel stats by the sort routes (ops/sort_raster)
+    or the scatter spec (ops/rasterize), the dense warp and the
+    road-marking transform, cast to one (S*7, P, P) float16 stack;
+  * the step() form: ``make_prep_fn`` does the augmentation-invariant
+    per-point work once per step (world -> BEV-reference transform, class
+    masks, dyn partition, the two packed payload words), and each
+    augmented sample then runs the prepped raster.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
 
 
 class RasterParams(NamedTuple):
-    """Per-sample raster parameters as device tensors (unpack_params)."""
+    """Per-sample raster parameters: host values (identity_params, pack)
+    or device tensors (unpack_params)."""
     T_ref_world: torch.Tensor   # (4,4) world -> BEV reference frame
     bev_coords: torch.Tensor    # (3,) BEV origin in the reference frame
     window_min: torch.Tensor    # first in-horizon global frame id
@@ -39,6 +46,16 @@ class RasterParams(NamedTuple):
     warp_b2: torch.Tensor
     height_thresh: torch.Tensor  # +inf = disabled
 
+    def pack(self) -> np.ndarray:
+        """Host values -> the (31,) float32 vector unpack_params reads."""
+        return np.concatenate([
+            np.asarray(self.T_ref_world, np.float32).reshape(-1),
+            np.asarray(self.bev_coords, np.float32),
+            np.array([self.window_min, self.window_max, self.present_frame,
+                      self.rot_ang, self.trans_dx, self.trans_dy, self.zoom,
+                      self.warp_a1, self.warp_a2, self.warp_b1, self.warp_b2,
+                      self.height_thresh], np.float32)])
+
 
 def unpack_params(vec) -> RasterParams:
     """View of a packed (31,) float32 parameter vector: pose_vec (22) ||
@@ -52,9 +69,112 @@ def unpack_params(vec) -> RasterParams:
         warp_b1=s[9], warp_b2=s[10], height_thresh=s[11])
 
 
+def identity_params(T_ref_world=None, bev_coords=None, window=(0, 0),
+                    present_frame=0, height_thresh=np.inf) -> RasterParams:
+    """Host-side parameters with no augmentation and no warp."""
+    T = np.eye(4, dtype=np.float32) if T_ref_world is None else T_ref_world
+    c = np.zeros(3, np.float32) if bev_coords is None else bev_coords
+    if height_thresh is None:
+        height_thresh = np.inf
+    return RasterParams(
+        T_ref_world=np.asarray(T, np.float32),
+        bev_coords=np.asarray(c, np.float32),
+        window_min=int(window[0]), window_max=int(window[1]),
+        present_frame=int(present_frame),
+        rot_ang=0.0, trans_dx=0.0, trans_dy=0.0, zoom=1.0,
+        warp_a1=1.0, warp_a2=0.0, warp_b1=1.0, warp_b2=0.0,
+        height_thresh=float(height_thresh))
+
+
 # Channel order inside the map stack, per split.
 _SPLIT_CHANNELS = ('road', 'intensity', 'rgb_r', 'rgb_g', 'rgb_b', 'dynamic',
                    'elevation')
+
+
+def _view_cells(ref_xyz, valid, pt_frame_ids, params, view_size, P):
+    """Per-sample view of BEV-reference points: the augmented points t,
+    the mask of valid in-window, in-view rows below the height threshold,
+    their (clamped) int32 cell ids, and the 'present' split mask."""
+    t = geo.geometric_transform(ref_xyz, params.rot_ang, params.trans_dx,
+                                params.trans_dy)
+    aug_view = params.zoom * view_size
+    in_window = ((pt_frame_ids >= params.window_min)
+                 & (pt_frame_ids <= params.window_max))
+    m = valid & in_window & geo.crop_view_mask(t, aug_view)
+    m &= t[:, 2] < params.height_thresh
+    grid = geo.pos2grid(t[:, :2], aug_view, P)
+    cells = geo.grid_cell_index(grid[:, 0], grid[:, 1], P)
+    cells = cells.clamp(0, P * P - 1).to(torch.int32)
+    return t, m, cells, pt_frame_ids < params.present_frame
+
+
+def make_raster_fn(view_size, pixel_size, sem_idxs, int_scaler,
+                   int_sep_scaler, int_mid_threshold, rgb_fill=0,
+                   backend='sort', use_kernel=None, pack=None,
+                   hist_medians=True):
+    """Classic per-sample raster with the static BEV configuration baked
+    in. fn(points (N,10), valid, pt_frame_ids, inst_dyn, params,
+    gen_future) -> (S*7, P, P) float16 stack (S = 3 with gen_future, else
+    1), warped; ``params`` is the packed (31,) parameter tensor or a
+    (pose_vec (22,), aug9 (9,)) pair.
+
+    ``backend``: 'sort' (ops/sort_raster.sorted_split_stats) or 'scatter'
+    (the ops/rasterize spec). ``use_kernel`` (None means True) takes the
+    sort backend's kernel route (the stats kernels on CUDA tensors, their
+    plain versions on CPU ones); False its pure-torch route.
+    ``hist_medians``: rgb medians from the kernel, else from sorts.
+    """
+    if pack is not None:
+        raise NotImplementedError(
+            f'pack={pack!r}: the port has the dense float16 output only')
+    if backend not in ('sort', 'scatter'):
+        raise ValueError(f"backend must be 'sort' or 'scatter', got "
+                         f'{backend!r}')
+    P = pixel_size
+    sem_idxs = dict(sem_idxs)
+    use_kernel = True if use_kernel is None else bool(use_kernel)
+
+    def raster(points, valid, pt_frame_ids, inst_dyn, params, gen_future):
+        if isinstance(params, tuple):
+            pose_vec, aug9 = params
+            params = torch.cat([pose_vec, torch.as_tensor(
+                aug9, dtype=torch.float32, device=pose_vec.device)])
+        params = unpack_params(params)
+        ref = (geo.homo_transform(params.T_ref_world, points[:, :3])
+               - params.bev_coords)
+        t, m, cells, present_m = _view_cells(ref, valid, pt_frame_ids,
+                                             params, view_size, P)
+        inst = points[:, cfg.PT_INST].clamp(0, inst_dyn.shape[0] - 1).to(
+            torch.int64)
+        dyn_eff = torch.maximum(points[:, cfg.PT_DYN], inst_dyn[inst])
+        static_m = m & (dyn_eff != 1.0)
+        z = t[:, 2]
+        inten = points[:, cfg.PT_I]
+        rgb = points[:, cfg.PT_R:cfg.PT_B + 1]
+        sem = points[:, cfg.PT_SEM]
+        meta = ['present', 'future', 'full'] if gen_future else ['present']
+        if backend == 'sort':
+            base_m = static_m if gen_future else (static_m & present_m)
+            chs = sort_raster.sorted_split_stats(
+                cells, base_m, ~present_m, z, inten, rgb, sem, sem_idxs, P,
+                gen_future, rgb_fill=rgb_fill, use_kernel=use_kernel,
+                hist_medians=hist_medians)
+        else:
+            splits = {'present': static_m & present_m}
+            if gen_future:
+                splits['future'] = static_m & ~present_m
+                splits['full'] = static_m
+            chs = {}
+            for name, split_mask in splits.items():
+                ch = ras.bev_split_channels(cells, split_mask, z, inten, rgb,
+                                            sem, sem_idxs, P,
+                                            rgb_fill=rgb_fill)
+                for key, v in ch.items():
+                    chs[f'{key}_{name}'] = v
+        return _emit_outputs(chs, meta, params, P, int_scaler,
+                             int_sep_scaler, int_mid_threshold)
+
+    return raster
 
 
 def make_prep_fn(sem_idxs):
@@ -94,18 +214,9 @@ def make_prepped_raster_fn(view_size, pixel_size, int_scaler,
     def raster(ref_xyz, valid, pt_frame_ids, packed, packed2, pv_aug,
                gen_future):
         params = unpack_params(torch.cat(pv_aug))
-        t = geo.geometric_transform(ref_xyz, params.rot_ang,
-                                    params.trans_dx, params.trans_dy)
-        aug_view = params.zoom * view_size
-        in_window = ((pt_frame_ids >= params.window_min)
-                     & (pt_frame_ids <= params.window_max))
-        m = valid & in_window & geo.crop_view_mask(t, aug_view)
-        m &= t[:, 2] < params.height_thresh
+        _, m, cells, present_m = _view_cells(ref_xyz, valid, pt_frame_ids,
+                                             params, view_size, P)
         static_m = m & (((packed >> 26) & 1) == 0)
-        grid = geo.pos2grid(t[:, :2], aug_view, P)
-        cells = geo.grid_cell_index(grid[:, 0], grid[:, 1], P)
-        cells = cells.clamp(0, P * P - 1)
-        present_m = pt_frame_ids < params.present_frame
         nsplit = 2 if gen_future else 1
         if gen_future:
             base_m = static_m
@@ -132,9 +243,9 @@ def _emit_outputs(chs, meta, params, P, int_scaler, int_sep_scaler,
         stack += [chs[f'road_{name}'], chs[f'intensity_{name}'], rgb[0],
                   rgb[1], rgb[2], chs[f'dynamic_{name}'],
                   chs[f'elevation_{name}']]
-    maps = warp_ops.warp_dense_maps(torch.stack(stack), params.warp_a1,
-                                    params.warp_a2, params.warp_b1,
-                                    params.warp_b2)
+    maps = torch.stack([m.reshape(P, P) for m in stack])
+    maps = warp_ops.warp_dense_maps(maps, params.warp_a1, params.warp_a2,
+                                    params.warp_b1, params.warp_b2)
     return finalize_dense(maps, len(meta), int_scaler, int_sep_scaler,
                           int_mid_threshold)
 

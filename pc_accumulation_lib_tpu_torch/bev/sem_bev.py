@@ -1,10 +1,14 @@
-"""Semantic BEV generator for the accum.step() path.
+"""Semantic BEV generator.
 
 Counterpart of bev/sem_bev.py's SemBEVGenerator with the dense float16
 fetch: host-drawn augmentation (numpy Generator, same draw order as the
-JAX package, so one seed gives the same samples), one prepped raster per
-sample on the device, one non-blocking device->host copy per sample, and
-host-side trajectory processing and assembly of the output dicts.
+JAX package, so one seed gives the same samples), one raster per sample on
+the device, one non-blocking device->host copy per sample, and host-side
+trajectory processing and assembly of the output dicts. Two device paths:
+``generate_samples`` runs the classic raster over the flat point buffer
+(integrate() + generate_bev(), and the standalone ``generate`` API on
+numpy point dicts); ``generate_samples_device`` runs the prepped raster of
+the step() path.
 """
 from __future__ import annotations
 
@@ -18,6 +22,29 @@ from pc_accumulation_lib_tpu_torch.bev import core
 from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
 
 _MAP_KEYS = ('road', 'intensity', 'rgb', 'dynamic', 'elevation')
+
+
+def _pad_bucket(n: int, minimum: int = 1024) -> int:
+    """Round a capacity up to a power of two (at least ``minimum``)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _to_rows10(pc: np.ndarray) -> np.ndarray:
+    """Normalize point rows to the 10-column layout (config.PT_*): (N,8)
+    [..sem] gets zero inst and dyn columns, (N,9) [..sem, dyn] a zero inst
+    column; (N,10) passes."""
+    n, c = pc.shape
+    if c == 10:
+        return pc
+    if c == 8:
+        return np.concatenate([pc, np.zeros((n, 2))], axis=1)
+    if c == 9:
+        return np.concatenate(
+            [pc[:, :8], np.zeros((n, 1)), pc[:, 8:9]], axis=1)
+    raise ValueError(f'Expected 8-10 point feature columns, got {c}')
 
 
 class SemBEVGenerator:
@@ -44,8 +71,11 @@ class SemBEVGenerator:
         self.height_filter = height_filter
         self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)
+        self._raster = core.make_raster_fn(
+            self.view_size, self.pixel_size, self.sem_idxs, int_scaler,
+            int_sep_scaler, int_mid_threshold, rgb_fill)
         self._prep_fn = core.make_prep_fn(self.sem_idxs)
-        self._raster = core.make_prepped_raster_fn(
+        self._raster_prepped = core.make_prepped_raster_fn(
             self.view_size, self.pixel_size, int_scaler, int_sep_scaler,
             int_mid_threshold, rgb_fill)
 
@@ -79,6 +109,92 @@ class SemBEVGenerator:
         return dict(a1=a1, a2=a2, b1=b1, b2=b2, i_mid=i_mid, j_mid=j_mid,
                     i_warp=i_warp, j_warp=j_warp, active=True)
 
+    @staticmethod
+    def _heading_rot_ang(ego_traj_present) -> float:
+        """Heading-aligned rotation: the last present ego segment points
+        up in the BEV."""
+        rot_ang = 0.5 * np.pi
+        if ego_traj_present is not None and len(ego_traj_present) > 1:
+            dx = ego_traj_present[-1][0] - ego_traj_present[-2][0]
+            dy = ego_traj_present[-1][1] - ego_traj_present[-2][1]
+            rot_ang += np.arctan2(dy, dx)
+        return float(np.pi - rot_ang)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == 'cuda':
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _fetch(self, stacks, assemble_args, trajs, gen_future):
+        """Start each stack's device->host copy now; the returned zero-arg
+        finalize waits for the copies and assembles the BEV dicts.
+        ``trajs`` is the trajectory dict or a zero-arg callable giving
+        it."""
+        outs = [o.to('cpu', non_blocking=True) for o in stacks]
+        done = None
+        if self.device.type == 'cuda':
+            # With a CUDA device the copies land in pinned host memory; the
+            # event marks when the last one is done.
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+
+        def finalize() -> List[Dict]:
+            tr = trajs() if callable(trajs) else trajs
+            if done is not None:
+                done.synchronize()
+            return [self._assemble(o.numpy(), tr, rot_ang, dx, dy,
+                                   zoom * self.view_size, w, gen_future)
+                    for o, (rot_ang, dx, dy, zoom, w)
+                    in zip(outs, assemble_args)]
+
+        return finalize
+
+    def generate_samples(self, points, valid, pt_frame_ids, inst_dyn,
+                         base_params: core.RasterParams, trajs: Dict,
+                         n_samples: int, gen_future: bool,
+                         randomize: Optional[bool] = None,
+                         async_fetch: bool = False):
+        """``n_samples`` BEV dicts from device-resident flat points with
+        the classic raster (core.make_raster_fn).
+
+        Args:
+          points/valid/pt_frame_ids/inst_dyn: flat tensors on the device.
+          base_params: host RasterParams with the frame, window and origin
+            fields set; the augmentation fields are drawn per sample.
+          trajs: metric-space trajectories already in the BEV frame
+            ({'ego_traj_present': (N,3), 'other_trajs_present': [...],
+            ... future/full ..., optional 'gt_lanes': [...]}).
+          randomize: override of the do_aug decision; without it the
+            rotation is heading-aligned and nothing is translated or
+            zoomed.
+          async_fetch: return a zero-arg callable yielding the list; all
+            device work and the copies are queued before it returns.
+        """
+        randomize = self.do_aug if randomize is None else randomize
+        hf = np.inf if self.height_filter is None else self.height_filter
+        draws, vecs = [], []
+        for _ in range(n_samples):
+            if randomize:
+                rot_ang, dx, dy, zoom = self._draw_geom_aug()
+            else:
+                rot_ang = self._heading_rot_ang(trajs.get('ego_traj_present'))
+                dx, dy, zoom = 0.0, 0.0, 1.0
+            w = self._draw_warp()
+            vecs.append(base_params._replace(
+                rot_ang=float(rot_ang), trans_dx=float(dx),
+                trans_dy=float(dy), zoom=float(zoom),
+                warp_a1=float(w['a1']), warp_a2=float(w['a2']),
+                warp_b1=float(w['b1']), warp_b2=float(w['b2']),
+                height_thresh=float(hf)).pack())
+            draws.append((rot_ang, dx, dy, zoom, w))
+        vecs = self._to_device(np.stack(vecs)) if vecs else []
+        stacks = [self._raster(points, valid, pt_frame_ids, inst_dyn,
+                               vecs[i], gen_future)
+                  for i in range(n_samples)]
+        finalize = self._fetch(stacks, draws, trajs, gen_future)
+        return finalize if async_fetch else finalize()
+
     def prep_points(self, points, inst_dyn, pose_vec):
         """Once-per-step augmentation-invariant point prep
         (core.make_prep_fn)."""
@@ -106,31 +222,13 @@ class SemBEVGenerator:
             aug9s.append([rot_ang, dx, dy, zoom, w['a1'], w['a2'], w['b1'],
                           w['b2'], hf])
             draws.append((rot_ang, dx, dy, zoom, w))
-        aug = torch.from_numpy(np.asarray(aug9s, np.float32).reshape(-1, 9))
-        if self.device.type == 'cuda':
-            aug = aug.pin_memory().to(self.device, non_blocking=True)
+        aug = self._to_device(np.asarray(aug9s, np.float32).reshape(-1, 9))
         ref_xyz, packed, packed2 = prepped
-        # Each stack starts its copy as soon as it is queued; with a CUDA
-        # device the copies land in pinned host memory, and the event
-        # marks when the last one is done.
-        outs = [self._raster(ref_xyz, valid, pt_frame_ids, packed, packed2,
-                             (pose_vec, aug[i]), gen_future).to(
-                                 'cpu', non_blocking=True)
-                for i in range(n_samples)]
-        done = None
-        if self.device.type == 'cuda':
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-
-        def finalize() -> List[Dict]:
-            trajs = trajs_fn()
-            if done is not None:
-                done.synchronize()
-            return [self._assemble(o.numpy(), trajs, rot_ang, dx, dy,
-                                   zoom * self.view_size, w, gen_future)
-                    for o, (rot_ang, dx, dy, zoom, w) in zip(outs, draws)]
-
-        return finalize
+        stacks = [self._raster_prepped(ref_xyz, valid, pt_frame_ids, packed,
+                                       packed2, (pose_vec, aug[i]),
+                                       gen_future)
+                  for i in range(n_samples)]
+        return self._fetch(stacks, draws, trajs_fn, gen_future)
 
     def _process_trajs(self, traj_list, rot_ang, dx, dy, aug_view, w):
         """Transform + crop + pixelize + warp one list of trajectories."""
@@ -161,4 +259,108 @@ class SemBEVGenerator:
             tl = ([] if ego is None else [ego]) + list(others)
             bev[f'trajs_{s}'] = self._process_trajs(tl, rot_ang, dx, dy,
                                                     aug_view, w)
+        if trajs.get('gt_lanes') is not None:
+            lanes = self._process_trajs(trajs['gt_lanes'], rot_ang, dx, dy,
+                                        aug_view, w)
+            bev['gt_lanes'] = [ln for ln in lanes if ln.shape[0] > 0]
         return bev
+
+    # ------------------------------------------------------------------
+    # Standalone API on numpy point dicts
+    # ------------------------------------------------------------------
+    def generate(self, pcs: Dict, trajs: Dict, rot_ang: float = 0.,
+                 trans_dx: float = 0., trans_dy: float = 0.,
+                 zoom_scalar: float = 1., do_warping: bool = False) -> Dict:
+        """One BEV dict from numpy point dicts pcs = {'pc_present'[,
+        'pc_future']} (8-10 columns) and metric-space ``trajs``. Without
+        ``do_warping`` the rotation is heading-aligned and ``rot_ang`` is
+        ignored."""
+        points, valid, fids, gen_future = self._pack_pcs(pcs)
+        if not do_warping:
+            rot_ang = self._heading_rot_ang(trajs.get('ego_traj_present'))
+        hf = np.inf if self.height_filter is None else self.height_filter
+        w = self._draw_warp()
+        params = core.identity_params(window=(0, 1), present_frame=1,
+                                      height_thresh=hf)._replace(
+            rot_ang=float(rot_ang), trans_dx=float(trans_dx),
+            trans_dy=float(trans_dy), zoom=float(zoom_scalar),
+            warp_a1=float(w['a1']), warp_a2=float(w['a2']),
+            warp_b1=float(w['b1']), warp_b2=float(w['b2']))
+        inst_dyn = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        stack = self._raster(points, valid, fids, inst_dyn,
+                             self._to_device(params.pack()), gen_future)
+        return self._fetch([stack], [(rot_ang, trans_dx, trans_dy,
+                                      zoom_scalar, w)], trajs,
+                           gen_future)()[0]
+
+    def generate_rand_aug(self, pcs: Dict, trajs: Dict,
+                          do_warping: bool = True) -> Dict:
+        """generate() with a random rotation, translation and zoom."""
+        rot_ang, dx, dy, zoom = self._draw_geom_aug()
+        return self.generate(pcs, trajs, rot_ang, dx, dy, zoom, do_warping)
+
+    def generate_multiproc(self, bev_gen_inputs) -> Dict:
+        """(pcs, trajs) -> generate_rand_aug with augmentation, generate
+        otherwise."""
+        pcs, trajs = bev_gen_inputs
+        if self.do_aug:
+            return self.generate_rand_aug(pcs, trajs)
+        return self.generate(pcs, trajs)
+
+    def _pack_pcs(self, pcs: Dict):
+        """pc_present/pc_future -> one flat buffer padded to a power of two
+        with pseudo frame ids 0 (present) / 1 (future), on the device."""
+        pc_p = _to_rows10(np.asarray(pcs['pc_present'], np.float32))
+        pc_f = pcs.get('pc_future')
+        gen_future = pc_f is not None
+        if gen_future:
+            pc_f = _to_rows10(np.asarray(pc_f, np.float32))
+            flat = np.concatenate([pc_p, pc_f], axis=0)
+            fids = np.concatenate([np.zeros(pc_p.shape[0], np.int32),
+                                   np.ones(pc_f.shape[0], np.int32)])
+        else:
+            flat = pc_p
+            fids = np.zeros(pc_p.shape[0], np.int32)
+        n = flat.shape[0]
+        cap = _pad_bucket(n)
+        flat = np.pad(flat, ((0, cap - n), (0, 0))).astype(np.float32)
+        fids = np.pad(fids, (0, cap - n))
+        valid = np.arange(cap) < n
+        return (self._to_device(flat), self._to_device(valid),
+                self._to_device(fids), gen_future)
+
+    # ------------------------------------------------------------------
+    # Elevation-based static/dynamic partition (host numpy)
+    # ------------------------------------------------------------------
+    def get_elevation_map(self, pc: np.ndarray):
+        """Per-cell min-z map from pixel-coordinate points: pc[:, 0] = i,
+        pc[:, 1] = j, pc[:, 2] = z; rows flip (j_rev = P-1-j). Returns
+        (elevmap (P,P), observed mask)."""
+        P = self.pixel_size
+        i = pc[:, 0].astype(int)
+        j_rev = P - 1 - pc[:, 1].astype(int)
+        elevmap = np.full((P, P), np.inf)
+        np.minimum.at(elevmap, (j_rev, i), pc[:, 2])
+        obs_mask = np.isfinite(elevmap)
+        elevmap[~obs_mask] = 0.0
+        return elevmap, obs_mask
+
+    def static_obj_partitioning_by_elev(self, pc: np.ndarray,
+                                        elev_thresh: float):
+        """Flag points more than ``elev_thresh`` above their cell's min z
+        as dynamic (pc[:, 8] = 1, in place). Returns (pc_static,
+        pc_dynamic, elevmap, elevmap_obs_mask)."""
+        P = self.pixel_size
+        elevmap, obs_mask = self.get_elevation_map(pc)
+        i = pc[:, 0].astype(int)
+        j_rev = P - 1 - pc[:, 1].astype(int)
+        above = pc[:, 2] > elevmap[j_rev, i] + elev_thresh
+        pc[above, 8] = 1
+        return (pc[pc[:, 8] == 0], pc[pc[:, 8] == 1], elevmap, obs_mask)
+
+    def viz_bev(self, bev, file_path, rgbs=None, semsegs=None):
+        """PNG of one BEV dict (the JAX package's bev/viz.py, matplotlib;
+        imported only here)."""
+        from pc_accumulation_lib_tpu.bev import viz
+        viz.viz_bev(bev, file_path, self.pixel_size, self.height_filter,
+                    rgbs or [], semsegs or [])

@@ -1,8 +1,11 @@
 """Segmented statistics over rows sorted by group key: the raster's stats
-kernel and its plain PyTorch version.
+kernels and their plain PyTorch versions.
 
-Counterpart of ops/pallas_stats.py:segmented_stats_words (the Pallas
-kernel ``_kernel_words``). The kernel is CUDA C++ for sm_90a
+Counterparts of the two Pallas kernels of ops/pallas_stats.py:
+``segmented_stats_words`` (kernel ``_kernel_words``: rows are the two
+packed payload words) and ``segmented_stats`` (kernel ``_kernel`` through
+``window_stats``: rows arrive unpacked as float32 weight, z and value
+rows). Both run one CUDA C++ kernel body for sm_90a with a row loader each
 (csrc/segmented_stats.cu), built with nvcc at first use into
 ``build/torch_kernels/`` under the repository root and bound with ctypes.
 A tensor on the CPU goes through the plain version; a CUDA tensor always
@@ -65,11 +68,14 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.segmented_stats_words_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+        fn.restype = i32
+        fn = lib.segmented_stats_rows_launch
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr,
+                       ptr, ptr, ptr]
+        fn.restype = i32
         _lib = lib
     return _lib
 
@@ -88,8 +94,40 @@ def _check_inputs(sorted_c2, sorted_w1, sorted_w2, num_groups, med_nsplit):
                              'device')
 
 
+def _launch(launch_fn, keys, num_groups, n_weights, n_values, *args):
+    """Allocate the outputs, take the group bounds from the sorted keys
+    (so sentinel keys >= num_groups are never read) and launch on the
+    keys' device and current stream. ``args`` are the loader's arguments
+    and the cell size, in the C function's order. Returns (sums, zmin,
+    meds)."""
+    dev = keys.device
+    q = torch.arange(num_groups + 1, device=dev, dtype=torch.int32)
+    bounds = torch.searchsorted(keys, q, out_int32=True)
+    sums = torch.empty((num_groups, n_weights), device=dev,
+                       dtype=torch.float32)
+    zmin = torch.empty((num_groups,), device=dev, dtype=torch.float32)
+    meds = torch.empty((n_values, 2, num_groups), device=dev,
+                       dtype=torch.float32)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(dev):
+        rc = launch_fn(bounds.data_ptr(), *args, sums.data_ptr(),
+                       zmin.data_ptr(), meds.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'segmented_stats kernel launch failed: CUDA '
+                           f'error {rc}')
+    return sums, zmin, meds
+
+
+def _device_of(keys, name):
+    dev = keys.device
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {dev}')
+    return dev.type
+
+
 def segmented_stats_words(sorted_c2, sorted_w1, sorted_w2, num_groups: int,
-                          med_nsplit: int = 1):
+                          med_nsplit: int = 1, hist_medians: bool = True):
     """Per-group stats of the sorted raster rows.
 
     Args:
@@ -100,39 +138,105 @@ def segmented_stats_words(sorted_c2, sorted_w1, sorted_w2, num_groups: int,
       num_groups: group count G.
       med_nsplit: 2 when groups interleave present/future, which adds the
         pair ('full') medians at even positions.
+      hist_medians: also compute the exact rgb medians; False skips the
+        histograms and returns the sums and z-mins only.
 
-    Returns (sums (G,4) [count, road, dyn, intensity], zmin (G,), meds
-    (3,2,G)), float32. Empty groups: sums 0, zmin +inf, medians 0.
+    Returns (sums (G,4) [count, road, dyn, intensity], zmin (G,)[, meds
+    (3,2,G) with hist_medians]), float32. Empty groups: sums 0, zmin +inf,
+    medians 0.
     """
     _check_inputs(sorted_c2, sorted_w1, sorted_w2, num_groups, med_nsplit)
-    dev = sorted_c2.device
-    if dev.type == 'cpu':
-        return segmented_stats_words_reference(sorted_c2, sorted_w1,
-                                               sorted_w2, num_groups,
-                                               med_nsplit)
-    if dev.type != 'cuda':
-        raise ValueError(f'segmented_stats_words: unsupported device {dev}')
+    if _device_of(sorted_c2, 'segmented_stats_words') == 'cpu':
+        return segmented_stats_words_reference(
+            sorted_c2, sorted_w1, sorted_w2, num_groups, med_nsplit,
+            hist_medians)
     c2, w1, w2 = (t.contiguous() for t in (sorted_c2, sorted_w1, sorted_w2))
-    lib = load_library()
-    q = torch.arange(num_groups + 1, device=dev, dtype=torch.int32)
-    bounds = torch.searchsorted(c2, q, out_int32=True)
-    sums = torch.empty((num_groups, 4), device=dev, dtype=torch.float32)
-    zmin = torch.empty((num_groups,), device=dev, dtype=torch.float32)
-    meds = torch.empty((3, 2, num_groups), device=dev, dtype=torch.float32)
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(dev):
-        rc = lib.segmented_stats_words_launch(
-            bounds.data_ptr(), w1.data_ptr(), w2.data_ptr(), num_groups,
-            med_nsplit, sums.data_ptr(), zmin.data_ptr(), meds.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'segmented_stats kernel launch failed: CUDA '
-                           f'error {rc}')
+    n_values = 3 if hist_medians else 0
+    sums, zmin, meds = _launch(
+        load_library().segmented_stats_words_launch, c2, num_groups, 4,
+        n_values, w1.data_ptr(), w2.data_ptr(), num_groups, med_nsplit,
+        n_values)
     segmented_stats_words.launches += 1
-    return sums, zmin, meds
+    return (sums, zmin, meds) if hist_medians else (sums, zmin)
 
 
 segmented_stats_words.launches = 0   # kernel launches (CUDA inputs only)
+
+
+def _check_rows(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
+                med_nsplit):
+    if len(weight_rows) > 4:
+        raise ValueError(f'at most 4 summed weight rows, got '
+                         f'{len(weight_rows)}')
+    if len(weight_rows) + len(value_rows) > 7:
+        raise ValueError(f'{len(weight_rows)} weight + {len(value_rows)} '
+                         'value rows exceed the 7 payload rows')
+    if med_nsplit not in (0, 1, 2):
+        raise ValueError(f'med_nsplit={med_nsplit} must be 0, 1 or 2')
+    if value_rows and med_nsplit == 2 and num_groups % 2:
+        raise ValueError(f'med_nsplit=2 needs an even num_groups, got '
+                         f'{num_groups}')
+    if sorted_keys.dtype != torch.int32 or sorted_keys.dim() != 1:
+        raise ValueError(f'sorted_keys must be a 1-D int32 tensor, got '
+                         f'{sorted_keys.dtype} {tuple(sorted_keys.shape)}')
+    for name, t in ([('z_sorted', z_sorted)]
+                    + [('weight_rows', r) for r in weight_rows]
+                    + [('value_rows', r) for r in value_rows]):
+        if t.shape != sorted_keys.shape or t.device != sorted_keys.device:
+            raise ValueError(f'{name} must match sorted_keys in shape and '
+                             'device')
+
+
+def _stack_rows(rows, like):
+    """(len(rows), N) contiguous float32 stack ((0, N) when empty)."""
+    if not rows:
+        return torch.empty((0, like.shape[0]), dtype=torch.float32,
+                           device=like.device)
+    return torch.stack([r.to(torch.float32) for r in rows]).contiguous()
+
+
+def segmented_stats(sorted_keys, weight_rows, z_sorted, num_groups: int,
+                    value_rows=(), med_nsplit: int = 1):
+    """Per-group sums of each weight row, z-min and (optionally) the exact
+    median of each u8-valued row, over rows sorted by group key.
+
+    Args:
+      sorted_keys: (N,) int32 group keys, ascending; keys >= num_groups
+        (sentinels) are ignored.
+      weight_rows: up to 4 (N,) float32 rows to sum per group; row 0 is
+        the all-ones count row when ``value_rows`` is given.
+      z_sorted: (N,) float32, min-reduced per group.
+      value_rows: up to 3 (N,) rows of values in [0, 256), truncated to
+        integers; at most 7 weight and value rows in all.
+      med_nsplit: 2 when groups interleave present/future, which adds the
+        pair ('full') medians at even positions; 0 or 1 leave [:, 1] at 0.
+
+    Returns (sums (G, len(weight_rows)), zmin (G,)[, meds
+    (len(value_rows), 2, G) when value_rows is given]), float32. Sums are
+    taken in float64 and rounded once. Empty groups: sums 0, zmin +inf,
+    medians 0.
+    """
+    weight_rows, value_rows = list(weight_rows), list(value_rows)
+    _check_rows(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
+                med_nsplit)
+    if _device_of(sorted_keys, 'segmented_stats') == 'cpu':
+        return segmented_stats_reference(sorted_keys, weight_rows, z_sorted,
+                                         num_groups, value_rows, med_nsplit)
+    keys = sorted_keys.contiguous()
+    w = _stack_rows(weight_rows, keys)
+    v = _stack_rows(value_rows, keys)
+    z = z_sorted.to(torch.float32).contiguous()
+    nsplit = 2 if value_rows and med_nsplit == 2 else 1
+    sums, zmin, meds = _launch(
+        load_library().segmented_stats_rows_launch, keys, num_groups,
+        len(weight_rows), len(value_rows), w.data_ptr(), len(weight_rows),
+        z.data_ptr(), v.data_ptr(), len(value_rows), keys.shape[0],
+        num_groups, nsplit)
+    segmented_stats.launches += 1
+    return (sums, zmin, meds) if value_rows else (sums, zmin)
+
+
+segmented_stats.launches = 0   # kernel launches (CUDA inputs only)
 
 
 def _decode_z(w2):
@@ -160,16 +264,40 @@ def _group_medians(keys, vals, lens):
     return torch.where(lens > 0, med, torch.zeros_like(med))
 
 
+def _medians(keys, keep, value_rows, lens, med_nsplit):
+    """(len(value_rows), 2, G) medians of the kept rows: [:, 0] per group,
+    [:, 1] per group pair at even positions when med_nsplit is 2."""
+    G = lens.shape[0]
+    kk = keys[keep]
+    meds = torch.zeros((len(value_rows), 2, G), dtype=torch.float32,
+                       device=lens.device)
+    for c, vals in enumerate(value_rows):
+        vals = vals[keep].to(torch.int64)
+        meds[c, 0] = _group_medians(kk, vals, lens)
+        if med_nsplit == 2:
+            meds[c, 1, 0::2] = _group_medians(
+                torch.div(kk, 2, rounding_mode='floor'), vals,
+                lens.view(-1, 2).sum(1))
+    return meds
+
+
+def _keys_and_keep(sorted_c2, num_groups):
+    """int64 keys with out-of-range keys sent to slot num_groups, and the
+    mask of in-range rows."""
+    keep = (sorted_c2 >= 0) & (sorted_c2 < num_groups)
+    return torch.where(keep, sorted_c2, num_groups).to(torch.int64), keep
+
+
 def segmented_stats_words_reference(sorted_c2, sorted_w1, sorted_w2,
-                                    num_groups: int, med_nsplit: int = 1):
+                                    num_groups: int, med_nsplit: int = 1,
+                                    hist_medians: bool = True):
     """Plain PyTorch version of segmented_stats_words (same contract,
     exact): index_add_ sums over integer payloads, scatter_reduce('amin')
     for the z-min, and sorted (key*256 + value) order statistics for the
     medians. Rows need not be sorted."""
     _check_inputs(sorted_c2, sorted_w1, sorted_w2, num_groups, med_nsplit)
     dev = sorted_c2.device
-    keep = (sorted_c2 >= 0) & (sorted_c2 < num_groups)
-    keys = torch.where(keep, sorted_c2, num_groups).to(torch.int64)
+    keys, keep = _keys_and_keep(sorted_c2, num_groups)
     w1, w2 = sorted_w1, sorted_w2
     G1 = num_groups + 1                          # slot G takes sentinels
     ints = torch.stack([torch.ones_like(w1), (w1 >> 25) & 1, (w1 >> 24) & 1,
@@ -183,15 +311,36 @@ def segmented_stats_words_reference(sorted_c2, sorted_w1, sorted_w2,
     zmin = torch.full((G1,), float('inf'), dtype=torch.float32, device=dev)
     zmin.scatter_reduce_(0, keys, _decode_z(w2), reduce='amin')
     zmin = zmin[:num_groups]
+    if not hist_medians:
+        return sums, zmin
+    vals = [(w1 >> shift) & 255 for shift in (16, 8, 0)]
+    return sums, zmin, _medians(keys, keep, vals, isum[:, 0], med_nsplit)
 
-    lens = isum[:, 0]
-    kk = keys[keep]
-    meds = torch.zeros((3, 2, num_groups), dtype=torch.float32, device=dev)
-    for c, shift in enumerate((16, 8, 0)):
-        vals = ((w1[keep] >> shift) & 255).to(torch.int64)
-        meds[c, 0] = _group_medians(kk, vals, lens)
-        if med_nsplit == 2:
-            pair_lens = lens.view(-1, 2).sum(1)
-            meds[c, 1, 0::2] = _group_medians(
-                torch.div(kk, 2, rounding_mode='floor'), vals, pair_lens)
-    return sums, zmin, meds
+
+def segmented_stats_reference(sorted_keys, weight_rows, z_sorted,
+                              num_groups: int, value_rows=(),
+                              med_nsplit: int = 1):
+    """Plain PyTorch version of segmented_stats (same contract): float64
+    index_add_ sums rounded once, scatter_reduce('amin') for the z-min,
+    and sorted (key*256 + value) order statistics for the medians. Rows
+    need not be sorted."""
+    weight_rows, value_rows = list(weight_rows), list(value_rows)
+    _check_rows(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
+                med_nsplit)
+    dev = sorted_keys.device
+    keys, keep = _keys_and_keep(sorted_keys, num_groups)
+    G1 = num_groups + 1                          # slot G takes sentinels
+    sums = torch.zeros((G1, len(weight_rows)), dtype=torch.float64,
+                       device=dev)
+    if weight_rows:
+        sums.index_add_(0, keys, torch.stack(
+            [r.to(torch.float64) for r in weight_rows], dim=1))
+    sums = sums[:num_groups].to(torch.float32)
+    zmin = torch.full((G1,), float('inf'), dtype=torch.float32, device=dev)
+    zmin.scatter_reduce_(0, keys, z_sorted.to(torch.float32), reduce='amin')
+    zmin = zmin[:num_groups]
+    if not value_rows:
+        return sums, zmin
+    lens = torch.bincount(keys, minlength=G1)[:num_groups]
+    vals = [v.to(torch.float32).to(torch.int64) for v in value_rows]
+    return sums, zmin, _medians(keys, keep, vals, lens, med_nsplit)

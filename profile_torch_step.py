@@ -69,8 +69,9 @@ def time_pieces(accum, frames, reps):
                         w['b2'], hf], dtype=torch.float32, device=accum.device)
 
     def raster():
-        return gen._raster(prepped[0], flat_valid, pt_fids, prepped[1],
-                           prepped[2], (accum._pose_vec_dev, aug), True)
+        return gen._raster_prepped(prepped[0], flat_valid, pt_fids,
+                                   prepped[1], prepped[2],
+                                   (accum._pose_vec_dev, aug), True)
 
     pieces = {
         'upload': lambda: accum.upload_obs(frames[1]),

@@ -226,18 +226,39 @@ def test_compact_cap_overflow_raises():
 
 
 def test_unset_compact_cap_raises():
-    """The port rasters only the compacted live window."""
-    with pytest.raises(NotImplementedError, match='compact_cap'):
-        tk3.Kitti360SemanticPointCloudAccumulator(
-            HORIZON, _calib(), 1e3, None, cfg.DEFAULT_SEMSEG_FILTERS,
-            cfg.DEFAULT_SEM_IDXS, True, BEV,
-            accum_cfg=cfg.AccumConfig(max_points_per_frame=8192,
-                                      max_frames=10),
-            device='cpu')
+    """step() with compact_cap unset rasters the whole flat buffer (every
+    slot, masked by frame id), as the JAX accumulator does, and matches
+    it: poses 1e-4 m, window start exact, maps under the step() rule.
+    The name is kept from when the port refused an unset compact_cap."""
+    stream = tsyn.SyntheticKitti360Stream(n_frames=5, step=2.0,
+                                          lidar_range=25.0, seed=3,
+                                          points_per_frame=3000)
+    frames = [stream.frame(i) for i in range(5)]
+    args = (HORIZON, _calib(), 1e3, None, cfg.DEFAULT_SEMSEG_FILTERS,
+            cfg.DEFAULT_SEM_IDXS, True, BEV)
+    kw = dict(accum_cfg=cfg.AccumConfig(max_points_per_frame=8192,
+                                        max_frames=6),
+              icp_cfg=cfg.ICPConfig(max_downsampled=512, num_iters=8),
+              seed=1)
+    a_j = jk3.Kitti360SemanticPointCloudAccumulator(*args, **kw)
+    a_t = tk3.Kitti360SemanticPointCloudAccumulator(*args, device='cpu',
+                                                    **kw)
+    assert a_t.accum_cfg.compact_cap is None
+    a_j.integrate([frames[0]])
+    a_t.integrate([frames[0]])
+    for f in frames[1:]:
+        bj = a_j.step([f], bev_num=2, gen_future=True)
+        bt = a_t.step([f], bev_num=2, gen_future=True)
+        assert a_t.window_start == a_j.window_start
+        np.testing.assert_allclose(np.array(a_t.poses), np.array(a_j.poses),
+                                   atol=1e-4)
+        _assert_bevs_match(bj, bt)
+    assert a_t.max_live_rows == 0     # no compaction ran
 
 
 def test_port_imports_no_jax_flax_pil():
-    """A fresh interpreter runs one tiny CPU step of the port without
+    """A fresh interpreter runs one tiny CPU step of the port and a tiny
+    sampling_loop (integrate, generate_bev, make_raster_fn) without
     importing JAX, Flax or PIL."""
     script = textwrap.dedent("""
         import sys
@@ -262,6 +283,25 @@ def test_port_imports_no_jax_flax_pil():
         a.integrate([s.frame(0)])
         assert len(a.step([s.frame(1)], bev_num=1)) == 1
         SemSegTorch('cpu', stage_sizes=(1, 1, 1, 1))
+        # The classic path: sampling_loop -> integrate + generate_bev ->
+        # make_raster_fn, on an accumulator without augmentation.
+        import tempfile
+        from pc_accumulation_lib_tpu_torch.runners.kitti360_bev_gen import (
+            sampling_loop)
+        b = Kitti360SemanticPointCloudAccumulator(
+            12.0, dict(p_velo_frame=P @ H), 1e3, None, use_gt_sem=True,
+            bev_params=dict(view_size=40, pixel_size=32),
+            accum_cfg=cfg.AccumConfig(max_points_per_frame=4096,
+                                      max_frames=8),
+            icp_cfg=cfg.ICPConfig(max_downsampled=128, num_iters=2),
+            device='cpu')
+        with tempfile.TemporaryDirectory() as d:
+            stats = sampling_loop(
+                b, SyntheticKitti360Stream(n_frames=6, lidar_range=20.0,
+                                           points_per_frame=1000),
+                cfg.SamplingConfig(2.0, 0.0, 1),
+                cfg.OutputConfig(d, viz_to_disk=False, async_io=False))
+        assert stats['bevs'] > 0, stats
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'PIL')]
         assert not bad, bad
