@@ -86,6 +86,18 @@ SELFTEST_ATOL = 2e-3
 POSE_ATOL = 1e-4
 MAP_ATOL, MAP_MISMATCH = 2e-2, 0.02
 
+# Kernel timing. The kernels are bound by bytes: the least time is the
+# bytes they must move (the key and payload of each keyed row read once,
+# each output written once) over the H100 SXM's HBM3 rate at its 700 W
+# limit (NVIDIA's data sheet); their operations (a few adds, a min and a
+# compare per row and value) over the card's 67 TFLOP/s float32 rate take
+# far less. Outputs per group: sums 4 B per weight, z-min 4 B, medians
+# 2 x 4 B per value row.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+TIMING_REPS = 50
+PROFILER_REPS = 20
+
 
 def check(ok, what):
     """Raise unless ``ok`` (unlike an assert statement, also under
@@ -212,6 +224,141 @@ def _median_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def _bound(keyed_rows, row_bytes, groups, n_weights, n_values):
+    """Bytes, operations and the least time of one stats call."""
+    nbytes = keyed_rows * row_bytes + groups * 4 * (n_weights + 1
+                                                    + 2 * n_values)
+    ops = keyed_rows * (n_weights + 1 + n_values)
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+    return dict(bytes=nbytes, ops=ops, bound_us=bound_s * 1e6,
+                bound_by='bytes' if nbytes / HBM_BYTES_PER_S
+                >= ops / FP32_OPS_PER_S else 'operations')
+
+
+def _profiler_us(raw, reps=PROFILER_REPS):
+    """The stats kernel's own mean device time under torch.profiler over
+    ``reps`` launches; None where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    raw()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            raw()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if 'segmented_stats' in ev.key and ev.count:
+            total = (getattr(ev, 'self_device_time_total', 0)
+                     or getattr(ev, 'self_cuda_time_total', 0))
+            if total:
+                return total / ev.count
+    return None
+
+
+def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
+            n_values, reps=TIMING_REPS):
+    """(i) the kernel's device time: CUDA events around ``reps``
+    back-to-back launches of ``raw`` (the kernel alone, on prepared
+    inputs and outputs), and its mean under torch.profiler; (ii) the
+    wrapper's time per call: host clock around ``reps`` calls of
+    ``wrapper``, ending in a synchronize; (iii) the bound and the share of
+    it the device time reaches. Inputs stay warm in L2 between launches,
+    as the sort that precedes the stats stage leaves them."""
+    raw()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        raw()
+    b.record()
+    b.synchronize()
+    device_us = a.elapsed_time(b) * 1e3 / reps
+    wrapper()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        wrapper()
+    torch.cuda.synchronize()
+    wrapper_us = (time.perf_counter() - t) * 1e6 / reps
+    bound = _bound(keyed_rows, row_bytes, groups, n_weights, n_values)
+    return dict(device_us=device_us, device_us_profiler=_profiler_us(raw),
+                wrapper_us=wrapper_us, **bound,
+                bound_share=bound['bound_us'] / device_us)
+
+
+def _raw_words(ss, c2, w1, w2, G, nsplit=2):
+    """Kernel 1 alone: the group bounds and outputs made once, then only
+    the C launch."""
+    q = torch.arange(G + 1, device=c2.device, dtype=torch.int32)
+    bounds = torch.searchsorted(c2, q, out_int32=True)
+    out = [torch.empty(shape, device=c2.device, dtype=torch.float32)
+           for shape in ((G, 4), (G,), (3, 2, G))]
+    lib = ss.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        rc = lib.segmented_stats_words_launch(
+            bounds.data_ptr(), w1.data_ptr(), w2.data_ptr(), G, nsplit, 3,
+            *(t.data_ptr() for t in out), stream)
+        check(rc == 0, rc)
+    return raw
+
+
+def _raw_rows(ss, case):
+    """Kernel 2 alone: the bounds, row stacks and outputs made once, then
+    only the C launch."""
+    keys, G = case['sorted_keys'], case['num_groups']
+    wr, vr = case['weight_rows'], case['value_rows']
+    q = torch.arange(G + 1, device=keys.device, dtype=torch.int32)
+    bounds = torch.searchsorted(keys, q, out_int32=True)
+    w, v = ss._stack_rows(wr, keys), ss._stack_rows(vr, keys)
+    z = case['z_sorted']
+    out = [torch.empty(shape, device=keys.device, dtype=torch.float32)
+           for shape in ((G, len(wr)), (G,), (len(vr), 2, G))]
+    nsplit = 2 if vr and case['med_nsplit'] == 2 else 1
+    lib = ss.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        rc = lib.segmented_stats_rows_launch(
+            bounds.data_ptr(), w.data_ptr(), len(wr), z.data_ptr(),
+            v.data_ptr(), len(vr), keys.shape[0], G, nsplit,
+            *(t.data_ptr() for t in out), stream)
+        check(rc == 0, rc)
+    return raw
+
+
+def _time_words(ss, c2, w1, w2, G):
+    """Kernel 1's timing numbers on one input (med_nsplit 2, medians)."""
+    keyed = int((c2 < G).sum())
+    return _timing(_raw_words(ss, c2, w1, w2, G),
+                   lambda: ss.segmented_stats_words(c2, w1, w2, G,
+                                                    med_nsplit=2),
+                   keyed, 12, G, 4, 3)
+
+
+def _time_rows(ss, case):
+    """Kernel 2's timing numbers on one input."""
+    keys, G = case['sorted_keys'], case['num_groups']
+    nw, nv = len(case['weight_rows']), len(case['value_rows'])
+    keyed = int(((keys >= 0) & (keys < G)).sum())
+    return _timing(_raw_rows(ss, case), lambda: ss.segmented_stats(**case),
+                   keyed, 4 * (1 + nw + 1 + nv), G, nw, nv)
+
+
+def _rows_case(c2, w1, w2, G):
+    """Kernel 2's inputs on sorted words rows, as the stats stage's
+    unpacked route makes them (sort_raster, words_kernel=False)."""
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    z, inten, road, dyn = sort_raster._unpack_words(w1, w2)
+    return dict(sorted_keys=c2, weight_rows=[torch.ones_like(road), road,
+                                             dyn, inten],
+                z_sorted=z, num_groups=G,
+                value_rows=[((w1 >> s) & 255).to(torch.float32)
+                            for s in (16, 8, 0)], med_nsplit=2)
+
+
 def _compare(ss, c2, w1, w2, G):
     """Kernel against the plain version on one input; returns the max abs
     error after the exactness checks."""
@@ -245,7 +392,8 @@ def phase_kernel(dev):
     errs = {name: _compare(ss, *case) for name, case in cases.items()}
     res = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
                **_time_pair(ss, *cases['bench']), **_shape(
-                   cases['bench'][0], cases['bench'][3]))
+                   cases['bench'][0], cases['bench'][3]),
+               timing=_time_words(ss, *cases['bench']))
     emit('kernel_vs_plain', t0, **res)
     return res
 
@@ -359,7 +507,8 @@ def phase_kernel2(dev):
     res = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
                **_time_turns(lambda: ss.segmented_stats(**bench),
                              lambda: ss.segmented_stats_reference(**bench)),
-               **_shape(bench['sorted_keys'], bench['num_groups']))
+               **_shape(bench['sorted_keys'], bench['num_groups']),
+               timing=_time_rows(ss, bench))
     emit('kernel2_vs_plain', t0, **res)
     return res
 
@@ -371,8 +520,12 @@ def phase_kernel_on_main_path(raster_in):
     t0 = time.perf_counter()
     c2, w1, w2, G = raster_in
     check(c2.numel() == ACCUM['compact_cap'], c2.numel())
+    case2 = _rows_case(c2, w1, w2, G)
     res = dict(max_abs_err=_compare(ss, c2, w1, w2, G),
-               **_time_pair(ss, c2, w1, w2, G), **_shape(c2, G))
+               **_time_pair(ss, c2, w1, w2, G), **_shape(c2, G),
+               timing=_time_words(ss, c2, w1, w2, G),
+               kernel2=dict(max_abs_err=_compare2(ss, case2),
+                            timing=_time_rows(ss, case2)))
     emit('kernel_on_main_path', t0, **res)
     return res
 
@@ -492,7 +645,8 @@ def _runner_accum(dev, semseg, stream_cfg, bev, use_gt_sem, **kw):
 
 def _read_samples(out_dir):
     """{relative path: BEV dict} of the pkl.gz files a run wrote."""
-    from pc_accumulation_lib_tpu.utils.io import read_compressed_pickle
+    from pc_accumulation_lib_tpu_torch.utils.io import (
+        read_compressed_pickle)
     out = {}
     for d, _, names in os.walk(out_dir):
         for n in names:
@@ -525,8 +679,6 @@ def phase_runner_path(dev, words_kernel=True, reference=None):
     (same files and keys, maps under the GPU-vs-CPU rule). Returns the
     result, the samples read back, the (c2, packed, packed2, ...) one
     raster gave the stats stage, and one raster's inputs."""
-    from pc_accumulation_lib_tpu.utils.async_writer import AsyncPickleWriter
-    from pc_accumulation_lib_tpu.utils.profiling import PhaseTimer
     from pc_accumulation_lib_tpu_torch import config as cfg
     from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
         SyntheticKitti360Stream)
@@ -534,6 +686,9 @@ def phase_runner_path(dev, words_kernel=True, reference=None):
     from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
     from pc_accumulation_lib_tpu_torch.ops import sort_raster
     from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    from pc_accumulation_lib_tpu_torch.utils.async_writer import (
+        AsyncPickleWriter)
+    from pc_accumulation_lib_tpu_torch.utils.profiling import PhaseTimer
     t0 = time.perf_counter()
     stream = SyntheticKitti360Stream(n_frames=RUNNER_FRAMES, **STREAM)
     accum = _runner_accum(dev, SemSegTorch(dev, seed=0), STREAM,
@@ -708,8 +863,11 @@ def phase_kernel2_on_runner_path(stats_in, rows):
     t1 = _time_pair(ss, keys, w1, w2, n_cells * nsplit)
     res = dict(replay_kernel2_launches=launches2,
                words_vs_unpacked_max_abs=route_err,
-               kernel2=dict(max_abs_err=err2, **t2),
-               kernel1=dict(max_abs_err=err1, **t1),
+               kernel2=dict(max_abs_err=err2, **t2,
+                            timing=_time_rows(ss, case)),
+               kernel1=dict(max_abs_err=err1, **t1,
+                            timing=_time_words(ss, keys, w1, w2,
+                                               n_cells * nsplit)),
                **_shape(keys, case['num_groups']))
     emit('kernel2_on_runner_path', t0, **res)
     return res
@@ -815,6 +973,22 @@ def phase_gpu_vs_cpu(dev):
     check(runner_mism < MAP_MISMATCH, runner_mism)
 
 
+def _kernel_entry(name, replaces, launches, max_abs_err, on_runner):
+    """One kernel's entry of the kernels line, at a runner raster's rows:
+    ``ms`` is the kernel's own device time, ``plain_ms`` the plain
+    version's; no single PyTorch call computes this function, so
+    ``library_ms`` is null."""
+    t = on_runner['timing']
+    return {'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': max_abs_err, 'ms': t['device_us'] / 1e3,
+            'plain_ms': on_runner['plain_ms'],
+            'bound_ms': t['bound_us'] / 1e3, 'bound_by': t['bound_by'],
+            'library_ms': None, 'device_us': t['device_us'],
+            'wrapper_us': t['wrapper_us'], 'bound_us': t['bound_us'],
+            'bound_share': t['bound_share']}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -837,22 +1011,28 @@ def main():
     runner2 = phase_runner_path(dev, words_kernel=False, reference=samples)[0]
     del samples
     phase_gpu_vs_cpu(dev)
+    # Each kernel's timing at the three shapes: made-up bench raster rows,
+    # a step() raster's rows, a runner raster's rows.
+    shapes = {'segmented_stats_words': dict(
+        bench=kern['timing'], step_raster=on_path['timing'],
+        runner_raster=on_runner['kernel1']['timing']),
+        'segmented_stats': dict(
+        bench=kern2['timing'], step_raster=on_path['kernel2']['timing'],
+        runner_raster=on_runner['kernel2']['timing'])}
+    emit('kernel_timing', time.perf_counter(), **shapes)
     print(card, flush=True)
     print(json.dumps({'kernels': [
-        {'name': 'segmented_stats_words', 'route': 'cuda',
-         'source': KERNEL_SOURCE, 'replaces': KERNEL_REPLACES,
-         'launches': runner['launches'],
-         'max_abs_err': max(kern['max_abs_err'], on_path['max_abs_err'],
-                            on_runner['kernel1']['max_abs_err']),
-         'ms': on_runner['kernel1']['ms'],
-         'plain_ms': on_runner['kernel1']['plain_ms']},
-        {'name': 'segmented_stats', 'route': 'cuda',
-         'source': KERNEL_SOURCE, 'replaces': KERNEL2_REPLACES,
-         'launches': runner2['kernel2_launches'],
-         'max_abs_err': max(kern2['max_abs_err'],
-                            on_runner['kernel2']['max_abs_err']),
-         'ms': on_runner['kernel2']['ms'],
-         'plain_ms': on_runner['kernel2']['plain_ms']}]}), flush=True)
+        _kernel_entry('segmented_stats_words', KERNEL_REPLACES,
+                      runner['launches'],
+                      max(kern['max_abs_err'], on_path['max_abs_err'],
+                          on_runner['kernel1']['max_abs_err']),
+                      on_runner['kernel1']),
+        _kernel_entry('segmented_stats', KERNEL2_REPLACES,
+                      runner2['kernel2_launches'],
+                      max(kern2['max_abs_err'],
+                          on_path['kernel2']['max_abs_err'],
+                          on_runner['kernel2']['max_abs_err']),
+                      on_runner['kernel2'])]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

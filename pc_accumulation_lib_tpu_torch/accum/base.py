@@ -13,24 +13,25 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pc_accumulation_lib_tpu.utils.io import (read_compressed_pickle,
-                                              write_compressed_pickle)
 from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.accum import buffer
 from pc_accumulation_lib_tpu_torch.bev import core as bev_core
 from pc_accumulation_lib_tpu_torch.bev.sem_bev import SemBEVGenerator
+from pc_accumulation_lib_tpu_torch.utils.io import (read_compressed_pickle,
+                                                    write_compressed_pickle)
 
 
 class SemanticPointCloudAccumulator:
-    """Base accumulator on an explicit ``device``. Subclasses implement
-    the per-platform integrate path; BEVs are in the newest ego frame."""
+    """Base accumulator on ``device`` (the card unless the caller passes
+    'cpu'). Subclasses implement the per-platform integrate path; BEVs are
+    in the newest ego frame."""
 
     def __init__(self, horizon_dist: float, icp_threshold: float,
                  semseg_model=None, semseg_filters=cfg.DEFAULT_SEMSEG_FILTERS,
                  sem_idxs: Optional[dict] = None, use_gt_sem: bool = False,
                  bev_params: Optional[dict] = None,
                  accum_cfg: Optional[cfg.AccumConfig] = None,
-                 seed: Optional[int] = None, *, device):
+                 seed: Optional[int] = None, *, device='cuda'):
         self.device = torch.device(device)
         self.horizon_dist = horizon_dist
         self.icp_threshold = icp_threshold

@@ -88,8 +88,10 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                  icp_cfg: Optional[cfg.ICPConfig] = None,
                  seed: Optional[int] = None,
                  transfer_dtype: str = 'float32',
-                 img_transfer: Optional[str] = None, *, device):
-        """Arguments as the JAX package's, plus ``device``. ``semseg_model``
+                 img_transfer: Optional[str] = None, *,
+                 device='cuda'):
+        """Arguments as the JAX package's, plus ``device`` (the card
+        unless the caller passes 'cpu'). ``semseg_model``
         is a models.semseg.SemSegTorch on the same device.
         ``transfer_dtype='quantized'`` uploads points packed at 7 B/point
         (xyz as 5 mm int16, intensity as uint8 at the same x200 scale) and

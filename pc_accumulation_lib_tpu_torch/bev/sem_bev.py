@@ -17,8 +17,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pc_accumulation_lib_tpu.ops import trajectory as traj_ops
 from pc_accumulation_lib_tpu_torch.bev import core
+from pc_accumulation_lib_tpu_torch.ops import trajectory as traj_ops
 from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
 
 _MAP_KEYS = ('road', 'intensity', 'rgb', 'dynamic', 'elevation')
@@ -48,8 +48,9 @@ def _to_rows10(pc: np.ndarray) -> np.ndarray:
 
 
 class SemBEVGenerator:
-    """Augmented semantic BEV samples on ``device``; constructor argument
-    order as the JAX package's."""
+    """Augmented semantic BEV samples on ``device`` (the card unless the
+    caller passes 'cpu'; nothing is allocated at construction);
+    constructor argument order as the JAX package's."""
 
     def __init__(self, sem_idxs: dict, view_size: float, pixel_size: int,
                  max_trans_radius: float = 0., zoom_thresh: float = 0.,
@@ -57,7 +58,7 @@ class SemBEVGenerator:
                  int_sep_scaler: float = 1., int_mid_threshold: float = 0.5,
                  height_filter: Optional[float] = None, rgb_fill: int = 0,
                  seed: Optional[int] = None, fetch_dtype: str = 'float16',
-                 device='cpu'):
+                 device='cuda'):
         if fetch_dtype != 'float16':
             raise NotImplementedError(
                 f"fetch_dtype={fetch_dtype!r}: the port has the dense "
@@ -359,8 +360,8 @@ class SemBEVGenerator:
         return (pc[pc[:, 8] == 0], pc[pc[:, 8] == 1], elevmap, obs_mask)
 
     def viz_bev(self, bev, file_path, rgbs=None, semsegs=None):
-        """PNG of one BEV dict (the JAX package's bev/viz.py, matplotlib;
-        imported only here)."""
-        from pc_accumulation_lib_tpu.bev import viz
+        """PNG of one BEV dict (bev/viz.py, matplotlib; imported only
+        here)."""
+        from pc_accumulation_lib_tpu_torch.bev import viz
         viz.viz_bev(bev, file_path, self.pixel_size, self.height_filter,
                     rgbs or [], semsegs or [])

@@ -1,7 +1,8 @@
 """Semantic-segmentation inference wrapper and weight loader.
 
 Counterpart of models/semseg.py (SemSegTPU): a callable mapping an RGB
-image to a class-index map, on an explicit device. On a CUDA device the
+image to a class-index map, on a device (the card unless the caller
+passes 'cpu'). On a CUDA device the
 convolutions compute in bfloat16 with batch norms in float32, as the JAX
 model does on the TPU; on the CPU everything is float32.
 """
@@ -21,7 +22,7 @@ class SemSegTorch:
     predict(images (B,H,W,3) tensor) -> (B,H,W) int32 tensor on the
     device; the accumulator calls predict on device images."""
 
-    def __init__(self, device, seed: int = 0,
+    def __init__(self, device='cuda', seed: int = 0,
                  stage_sizes: Optional[Sequence[int]] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         self.device = torch.device(device)

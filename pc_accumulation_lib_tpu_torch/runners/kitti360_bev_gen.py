@@ -8,8 +8,8 @@ sampling policy, and writes gzip-pickled BEV dicts (and, with
 Library use: run(...) on a KITTI-360 tree, or sampling_loop(...) on any
 iterable of observation batches; CLI: python -m
 pc_accumulation_lib_tpu_torch.runners.kitti360_bev_gen <root>
-[<semseg_model>] [--device cuda]. The KITTI-360 dataloader (PIL) is
-imported inside run() only, so sampling_loop imports neither PIL nor JAX.
+[<semseg_model>] [--device cuda]. The KITTI-360 dataloader reads images
+with PIL, imported only when a frame is read.
 """
 from __future__ import annotations
 
@@ -19,11 +19,11 @@ from typing import Optional
 
 import numpy as np
 
-from pc_accumulation_lib_tpu.utils.io import write_compressed_pickle
-from pc_accumulation_lib_tpu.utils.profiling import PhaseTimer
 from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.accum.kitti360 import (
     Kitti360SemanticPointCloudAccumulator)
+from pc_accumulation_lib_tpu_torch.utils.io import write_compressed_pickle
+from pc_accumulation_lib_tpu_torch.utils.profiling import PhaseTimer
 
 # run()'s BEV parameters: 80 m / 256 px, no augmentation and no warp.
 DEFAULT_BEV_PARAMS = {
@@ -36,7 +36,7 @@ DEFAULT_BEV_PARAMS = {
 
 def build_calib_params(kitti360_path: str) -> dict:
     """Projection matrices from the KITTI-360 calibration files."""
-    from pc_accumulation_lib_tpu.dataloaders.kitti360 import (
+    from pc_accumulation_lib_tpu_torch.dataloaders.kitti360 import (
         get_camera_intrinsics, get_transf_matrices)
     h_cam_velo, h_velo_cam = get_transf_matrices(kitti360_path)
     p_cam_frame = get_camera_intrinsics(kitti360_path)
@@ -72,7 +72,7 @@ def sampling_loop(sem_pc_accum, dataloader, sampling: cfg.SamplingConfig,
     frames = 0
     writer = None
     if output.async_io:
-        from pc_accumulation_lib_tpu.utils.async_writer import (
+        from pc_accumulation_lib_tpu_torch.utils.async_writer import (
             AsyncPickleWriter)
         writer = AsyncPickleWriter()
     for sample_idx, observations in enumerate(dataloader):
@@ -152,11 +152,12 @@ def run(kitti360_path: str, semseg_model=None, use_gt_sem: bool = False,
         icp_cfg: Optional[cfg.ICPConfig] = None,
         seed: Optional[int] = None,
         img_transfer: Optional[str] = None,
-        pc_transfer: str = 'float32', *, device) -> dict:
+        pc_transfer: str = 'float32', *, device='cuda') -> dict:
     """Generate the BEV dataset of the given KITTI-360 sequences on
-    ``device``; ``semseg_model`` is a models.semseg.SemSegTorch on the
-    same device (or None with ``use_gt_sem``). Returns {frames, bevs}."""
-    from pc_accumulation_lib_tpu.dataloaders.kitti360 import (
+    ``device`` (the card unless the caller passes 'cpu');
+    ``semseg_model`` is a models.semseg.SemSegTorch on the same device
+    (or None with ``use_gt_sem``). Returns {frames, bevs}."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.kitti360 import (
         Kitti360Dataloader)
     sequences = list(sequences or cfg.KITTI360_SEQUENCES)
     start_idxs = list(start_idxs or cfg.KITTI360_START_IDXS)

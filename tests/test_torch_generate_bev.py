@@ -69,19 +69,20 @@ def test_generate_matches_jax(rng, cols):
     kw = dict(int_scaler=20., int_sep_scaler=20., height_filter=3.0,
               rgb_fill=4, seed=0)
     bj = JGen(*GEN_ARGS, **kw).generate(pcs, trajs)
-    bt = TGen(*GEN_ARGS, **kw).generate(pcs, trajs)
+    bt = TGen(*GEN_ARGS, **kw, device='cpu').generate(pcs, trajs)
     assert len(bt['gt_lanes']) == 1         # the empty lane is dropped
     _assert_same_bev(bj, bt)
     present_only = {'pc_present': pcs['pc_present']}
     _assert_same_bev(JGen(*GEN_ARGS, **kw).generate(present_only, trajs),
-                     TGen(*GEN_ARGS, **kw).generate(present_only, trajs))
+                     TGen(*GEN_ARGS, **kw, device='cpu').generate(
+                         present_only, trajs))
 
 
 def test_generate_rand_aug_and_multiproc_match_jax(rng):
     pcs, trajs = _pcs_and_trajs(rng)
     kw = dict(max_trans_radius=3.0, zoom_thresh=0.05, do_warp=True,
               int_scaler=20., int_sep_scaler=20., seed=11)
-    gj, gt = JGen(*GEN_ARGS, **kw), TGen(*GEN_ARGS, **kw)
+    gj, gt = JGen(*GEN_ARGS, **kw), TGen(*GEN_ARGS, **kw, device='cpu')
     for _ in range(2):
         _assert_same_bev(gj.generate_rand_aug(pcs, trajs),
                          gt.generate_rand_aug(pcs, trajs))
@@ -93,8 +94,8 @@ def test_elevation_partition_matches_jax(rng):
     pc = np.zeros((3000, 9))
     pc[:, :2] = rng.integers(0, 64, size=(3000, 2))
     pc[:, 2] = rng.normal(size=3000)
-    outs = [g(*GEN_ARGS).static_obj_partitioning_by_elev(pc.copy(), 0.5)
-            for g in (JGen, TGen)]
+    outs = [g.static_obj_partitioning_by_elev(pc.copy(), 0.5)
+            for g in (JGen(*GEN_ARGS), TGen(*GEN_ARGS, device='cpu'))]
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 
