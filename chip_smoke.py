@@ -169,7 +169,7 @@ def _kernel_cases(dev):
           + (torch.rand(n, generator=gen) < 0.35))
     c2 = torch.where(torch.rand(n, generator=gen) < 0.25, G, c2)
     cases['bench'] = (torch.sort(c2.to(torch.int32)).values.to(dev),
-                      *_words(gen, n, dev), G)
+                      *_words(gen, n, dev), G, {})
     # Adversarial small case: sentinels, empty groups, single-row groups,
     # float16 subnormal and extreme heights.
     n, G = 6000, 1024
@@ -183,30 +183,70 @@ def _kernel_cases(dev):
     w2[:8] = ((zbits & 0xFFFF) << 16) | (w2[:8] & 0xFFFF)
     order = torch.sort(c2.to(torch.int32)).indices
     cases['adversarial'] = (c2.to(torch.int32)[order].to(dev),
-                            w1[order].to(dev), w2[order].to(dev), G)
+                            w1[order].to(dev), w2[order].to(dev), G, {})
     # One group of more than 65,535 rows.
     n, G = 70_000, 8
     c2 = torch.full((n,), 3, dtype=torch.int32)
     c2[-100:] = 5
-    cases['large_group'] = (c2.to(dev), *_words(gen, n, dev), G)
+    cases['large_group'] = (c2.to(dev), *_words(gen, n, dev), G, {})
+    # Group sizes around the register/histogram thresholds, with and
+    # without medians, one and two groups per cell.
+    keys, G = _edge_keys()
+    w1, w2 = _words(gen, keys.numel(), dev)
+    for name, kw in (('register_edges', {}),
+                     ('register_edges_nsplit_1', dict(med_nsplit=1)),
+                     ('register_edges_no_medians',
+                      dict(hist_medians=False))):
+        cases[name] = (keys.to(dev), w1, w2, G, kw)
+    none = torch.zeros((0,), dtype=torch.int32, device=dev)
+    cases['no_rows'] = (none, none, none, 64, {})
+    cases['all_sentinel'] = (torch.full((5000,), 64, dtype=torch.int32,
+                                        device=dev), *_words(gen, 5000, dev),
+                             64, {})
+    keys = _sorted_keys(gen, 3000, 77, 0, 77, 0.1)
+    cases['odd_groups_nsplit_1'] = (keys.to(dev), *_words(gen, 3000, dev),
+                                    77, dict(med_nsplit=1))
     return cases
+
+
+def _edge_keys():
+    """Sorted keys whose groups hold 1, 31-33, 63-65, 127-129 and 200 rows
+    (around the register/histogram thresholds) in cells whose other split
+    is empty or as full; pairs whose sum crosses a threshold; negative
+    keys before and sentinels after. Returns (keys, num_groups)."""
+    sizes = []
+    for a in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 200):
+        sizes += [a, 0, 0, a, a, 0]
+    for pair in ((16, 16), (16, 17), (32, 32), (32, 33), (60, 5), (64, 64),
+                 (64, 65), (100, 28), (100, 29), (1, 127), (0, 0), (3, 0)):
+        sizes += list(pair)
+    G = len(sizes)
+    keys = torch.repeat_interleave(torch.arange(G, dtype=torch.int32),
+                                   torch.tensor(sizes))
+    return torch.cat([torch.full((7,), -3, dtype=torch.int32), keys,
+                      torch.full((50,), G, dtype=torch.int32)]), G
+
+
+def _max_abs(a, b):
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
 def _max_err(got, ref):
     """Max abs difference over all outputs; +inf z-mins must match
     exactly. Also checks the exact-equality contract."""
-    sums, zmin, meds = got
-    rsums, rzmin, rmeds = ref
+    check(len(got) == len(ref), (len(got), len(ref)))
+    sums, zmin = got[:2]
+    rsums, rzmin = ref[:2]
     check(torch.equal(sums[:, :3], rsums[:, :3]), 'counts/road/dyn differ')
     check(torch.equal(zmin, rzmin), 'z-min differs')
-    check(torch.equal(meds, rmeds), 'medians differ')
     check(torch.allclose(sums[:, 3], rsums[:, 3], rtol=INTENSITY_RTOL,
                           atol=1e-6), 'intensity differs')
     fin = torch.isfinite(rzmin)
-    return max(float((sums - rsums).abs().max()),
-               float((zmin[fin] - rzmin[fin]).abs().max()) if fin.any()
-               else 0.0,
-               float((meds - rmeds).abs().max()))
+    errs = [_max_abs(sums, rsums), _max_abs(zmin[fin], rzmin[fin])]
+    if len(got) == 3:
+        check(torch.equal(got[2], ref[2]), 'medians differ')
+        errs.append(_max_abs(got[2], ref[2]))
+    return max(errs)
 
 
 def _median_ms(fn, reps=20):
@@ -255,15 +295,9 @@ def _profiler_us(raw, reps=PROFILER_REPS):
     return None
 
 
-def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
-            n_values, reps=TIMING_REPS):
-    """(i) the kernel's device time: CUDA events around ``reps``
-    back-to-back launches of ``raw`` (the kernel alone, on prepared
-    inputs and outputs), and its mean under torch.profiler; (ii) the
-    wrapper's time per call: host clock around ``reps`` calls of
-    ``wrapper``, ending in a synchronize; (iii) the bound and the share of
-    it the device time reaches. Inputs stay warm in L2 between launches,
-    as the sort that precedes the stats stage leaves them."""
+def _events_us(raw, reps=TIMING_REPS):
+    """Mean device time of ``reps`` back-to-back calls of ``raw``: CUDA
+    events around the run."""
     raw()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -273,7 +307,21 @@ def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
         raw()
     b.record()
     b.synchronize()
-    device_us = a.elapsed_time(b) * 1e3 / reps
+    return a.elapsed_time(b) * 1e3 / reps
+
+
+def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
+            n_values, reps=TIMING_REPS):
+    """(i) the kernel's device time: CUDA events around ``reps``
+    back-to-back launches of ``raw`` (the kernel alone, on prepared
+    inputs and outputs), and its mean under torch.profiler; (ii) the
+    wrapper's time per call: host clock around ``reps`` calls of
+    ``wrapper``, ending in a synchronize; (iii) the bound and the share of
+    it the device time reaches. Inputs stay warm in L2 between launches,
+    as the sort that precedes the stats stage leaves them. Also checks
+    that one wrapper call runs one device operation (the kernel), and
+    times the kernel at each register threshold."""
+    device_us = _events_us(raw, reps)
     wrapper()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -282,51 +330,71 @@ def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
     torch.cuda.synchronize()
     wrapper_us = (time.perf_counter() - t) * 1e6 / reps
     bound = _bound(keyed_rows, row_bytes, groups, n_weights, n_values)
+    # The wrapper runs the kernel and no other device operation. (The
+    # profiler sometimes drops a launch's record, so fewer than one per
+    # call can show; never another operation.)
+    per_call, ops = _device_ops(wrapper)
+    check(len(ops) == 1 and 'segmented_stats_kernel' in ops[0]
+          and 0 < per_call <= 1,
+          f'one device operation per call, got {per_call}: {ops}')
     return dict(device_us=device_us, device_us_profiler=_profiler_us(raw),
                 wrapper_us=wrapper_us, **bound,
-                bound_share=bound['bound_us'] / device_us)
+                bound_share=bound['bound_us'] / device_us,
+                device_ops_per_call=ops, profiled_ops_per_call=per_call,
+                device_us_by_register_rows=_register_sweep(raw))
 
 
 def _raw_words(ss, c2, w1, w2, G, nsplit=2):
-    """Kernel 1 alone: the group bounds and outputs made once, then only
-    the C launch."""
-    q = torch.arange(G + 1, device=c2.device, dtype=torch.int32)
-    bounds = torch.searchsorted(c2, q, out_int32=True)
-    out = [torch.empty(shape, device=c2.device, dtype=torch.float32)
-           for shape in ((G, 4), (G,), (3, 2, G))]
-    lib = ss.load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def raw():
-        rc = lib.segmented_stats_words_launch(
-            bounds.data_ptr(), w1.data_ptr(), w2.data_ptr(), G, nsplit, 3,
-            *(t.data_ptr() for t in out), stream)
-        check(rc == 0, rc)
-    return raw
+    """Kernel 1 alone: its output buffer made once, then only the launch
+    (at the wrapper's register threshold unless given another)."""
+    buf, _ = ss._outputs(c2, G, 4, 3)
+    return lambda reg_max=ss.REGISTER_MEDIAN_ROWS: ss._launch_words(
+        c2, w1, w2, G, nsplit, 3, buf, reg_max)
 
 
 def _raw_rows(ss, case):
-    """Kernel 2 alone: the bounds, row stacks and outputs made once, then
-    only the C launch."""
+    """Kernel 2 alone: its output buffer made once, then only the launch
+    (at the wrapper's register threshold unless given another)."""
     keys, G = case['sorted_keys'], case['num_groups']
     wr, vr = case['weight_rows'], case['value_rows']
-    q = torch.arange(G + 1, device=keys.device, dtype=torch.int32)
-    bounds = torch.searchsorted(keys, q, out_int32=True)
-    w, v = ss._stack_rows(wr, keys), ss._stack_rows(vr, keys)
-    z = case['z_sorted']
-    out = [torch.empty(shape, device=keys.device, dtype=torch.float32)
-           for shape in ((G, len(wr)), (G,), (len(vr), 2, G))]
     nsplit = 2 if vr and case['med_nsplit'] == 2 else 1
-    lib = ss.load_library()
-    stream = torch.cuda.current_stream().cuda_stream
+    buf, _ = ss._outputs(keys, G, len(wr), len(vr))
+    return lambda reg_max=ss.REGISTER_MEDIAN_ROWS: ss._launch_rows(
+        keys, wr, case['z_sorted'], vr, G, nsplit, buf, reg_max)
 
-    def raw():
-        rc = lib.segmented_stats_rows_launch(
-            bounds.data_ptr(), w.data_ptr(), len(wr), z.data_ptr(),
-            v.data_ptr(), len(vr), keys.shape[0], G, nsplit,
-            *(t.data_ptr() for t in out), stream)
-        check(rc == 0, rc)
-    return raw
+
+REGISTER_SWEEP = (0, 64, 127)
+
+
+def _register_sweep(raw):
+    """The kernel's device time (torch.profiler, else CUDA events) at each
+    cell size up to which cells are computed from registers."""
+    out = {}
+    for r in REGISTER_SWEEP:
+        launch = lambda r=r: raw(r)
+        out[r] = _profiler_us(launch) or _events_us(launch)
+    return out
+
+
+def _device_ops(fn, calls=5, tries=3):
+    """The device operations (kernels, copies, sets) one call of ``fn``
+    runs, from torch.profiler over ``calls`` calls, tried again when it
+    records no device activity at all: (operations per call, their
+    names)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return len(names) / calls, sorted(set(names))
 
 
 def _time_words(ss, c2, w1, w2, G):
@@ -343,7 +411,8 @@ def _time_rows(ss, case):
     keys, G = case['sorted_keys'], case['num_groups']
     nw, nv = len(case['weight_rows']), len(case['value_rows'])
     keyed = int(((keys >= 0) & (keys < G)).sum())
-    return _timing(_raw_rows(ss, case), lambda: ss.segmented_stats(**case),
+    return _timing(_raw_rows(ss, case),
+                   lambda: ss.segmented_stats(**case),
                    keyed, 4 * (1 + nw + 1 + nv), G, nw, nv)
 
 
@@ -359,11 +428,13 @@ def _rows_case(c2, w1, w2, G):
                             for s in (16, 8, 0)], med_nsplit=2)
 
 
-def _compare(ss, c2, w1, w2, G):
-    """Kernel against the plain version on one input; returns the max abs
-    error after the exactness checks."""
-    got = ss.segmented_stats_words(c2, w1, w2, G, med_nsplit=2)
-    ref = ss.segmented_stats_words_reference(c2, w1, w2, G, med_nsplit=2)
+def _compare(ss, c2, w1, w2, G, kw=None):
+    """Kernel against the plain version on one input (med_nsplit 2 and
+    medians unless ``kw`` says otherwise); returns the max abs error after
+    the exactness checks."""
+    kw = dict(dict(med_nsplit=2), **(kw or {}))
+    got = ss.segmented_stats_words(c2, w1, w2, G, **kw)
+    ref = ss.segmented_stats_words_reference(c2, w1, w2, G, **kw)
     torch.cuda.synchronize()
     return _max_err(got, ref)
 
@@ -390,10 +461,10 @@ def phase_kernel(dev):
     t0 = time.perf_counter()
     cases = _kernel_cases(dev)
     errs = {name: _compare(ss, *case) for name, case in cases.items()}
+    bench = cases['bench'][:4]
     res = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
-               **_time_pair(ss, *cases['bench']), **_shape(
-                   cases['bench'][0], cases['bench'][3]),
-               timing=_time_words(ss, *cases['bench']))
+               **_time_pair(ss, *bench), **_shape(bench[0], bench[3]),
+               timing=_time_words(ss, *bench))
     emit('kernel_vs_plain', t0, **res)
     return res
 
@@ -453,6 +524,26 @@ def _kernel2_cases(dev):
     cases['one_weight_no_values'] = _kernel2_case(gen, keys, 1024, 1, 0, 1)
     for ms in (0, 1):
         cases[f'med_nsplit_{ms}'] = _kernel2_case(gen, keys, 1024, 4, 3, ms)
+    # Group sizes around the register/histogram thresholds (kernel 1's).
+    keys, G = _edge_keys()
+    for ms in (2, 1):
+        cases[f'register_edges_med_nsplit_{ms}'] = _kernel2_case(
+            gen, keys, G, 4, 3, ms)
+    cases['no_rows'] = _kernel2_case(gen, torch.zeros((0,), dtype=torch.int32),
+                                     64, 4, 3, 2)
+    cases['odd_groups_nsplit_1'] = _kernel2_case(
+        gen, _sorted_keys(gen, 3000, 77, 0, 77, 0.1), 77, 4, 3, 1)
+    # Values in (-1, 256) that are not integers: truncated toward zero.
+    n = keys.numel()
+    cases['truncated_values'] = dict(
+        _kernel2_case(gen, keys, G, 4, 3, 2),
+        value_rows=[torch.rand(n, generator=gen) * 256.99 - 0.99
+                    for _ in range(3)])
+    # Values outside [0, 256): left out of the medians (IN_RANGE_ONLY).
+    cases['values_out_of_range'] = dict(
+        _kernel2_case(gen, keys, G, 4, 3, 2),
+        value_rows=[torch.rand(n, generator=gen) * 340.0 - 40.0
+                    for _ in range(3)])
     return {name: {k: ([t.to(dev) for t in v] if isinstance(v, list)
                        else v.to(dev) if torch.is_tensor(v) else v)
                    for k, v in case.items()}
@@ -480,11 +571,52 @@ def _max_err2(got, ref, n_exact):
     return max(errs)
 
 
-def _compare2(ss, case):
+# Kernel 2's cases whose value rows leave [0, 256): the plain version's
+# medians are not defined there, so their reference is the plain version
+# on each channel's in-range rows.
+IN_RANGE_ONLY = ('values_out_of_range',)
+
+
+def _in_range_medians(ss, case):
+    """(n_values, 2, G) medians of the plain version over each channel's
+    rows whose truncated value lies in [0, 256)."""
+    keys, G = case['sorted_keys'], case['num_groups']
+    meds = []
+    for v in case['value_rows']:
+        t = v.to(torch.int64)
+        ok = (t >= 0) & (t < 256)
+        meds.append(ss.segmented_stats_reference(
+            torch.where(ok, keys, G), [torch.ones_like(v)], case['z_sorted'],
+            G, [torch.where(ok, v, 0.0)], case['med_nsplit'])[2][0])
+    return torch.stack(meds)
+
+
+def _compare2(ss, case, in_range_only=False):
     got = ss.segmented_stats(**case)
     ref = ss.segmented_stats_reference(**case)
+    if in_range_only:
+        ref = (*ref[:2], _in_range_medians(ss, case))
     torch.cuda.synchronize()
     return _max_err2(got, ref, min(3, len(case['weight_rows'])))
+
+
+def _check_rows_layout_raises(ss, case):
+    """The wrapper refuses rows it cannot read in place: a strided weight
+    or z row, a value row that is not float32. Nothing is launched."""
+    w0 = case['weight_rows'][0]
+    wide = torch.stack([w0, w0], dim=1)
+    before = ss.segmented_stats.launches
+    for bad in (dict(weight_rows=[wide[:, 0], *case['weight_rows'][1:]]),
+                dict(z_sorted=wide[:, 1]),
+                dict(value_rows=[v.to(torch.float64)
+                                 for v in case['value_rows']])):
+        try:
+            ss.segmented_stats(**{**case, **bad})
+        except ValueError:
+            continue
+        raise RuntimeError(f'chip_smoke check failed: {sorted(bad)} was '
+                           'accepted')
+    check(ss.segmented_stats.launches == before, 'a refused call launched')
 
 
 def _time_turns(kernel, plain):
@@ -502,7 +634,9 @@ def phase_kernel2(dev):
     from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
     t0 = time.perf_counter()
     cases = _kernel2_cases(dev)
-    errs = {name: _compare2(ss, case) for name, case in cases.items()}
+    errs = {name: _compare2(ss, case, name in IN_RANGE_ONLY)
+            for name, case in cases.items()}
+    _check_rows_layout_raises(ss, cases['register_edges_med_nsplit_2'])
     bench = cases['bench']
     res = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
                **_time_turns(lambda: ss.segmented_stats(**bench),
@@ -853,6 +987,7 @@ def phase_kernel2_on_runner_path(stats_in, rows):
         route_err = max(route_err, float((unpacked[k] - v).abs().max()))
     case = kernel2_in[0]
     err2 = _compare2(ss, case)
+    mem = _kernel2_memory(ss, case)
     t2 = _time_turns(lambda: ss.segmented_stats(**case),
                      lambda: ss.segmented_stats_reference(**case))
     keys = case['sorted_keys']
@@ -863,7 +998,7 @@ def phase_kernel2_on_runner_path(stats_in, rows):
     t1 = _time_pair(ss, keys, w1, w2, n_cells * nsplit)
     res = dict(replay_kernel2_launches=launches2,
                words_vs_unpacked_max_abs=route_err,
-               kernel2=dict(max_abs_err=err2, **t2,
+               kernel2=dict(max_abs_err=err2, **t2, **mem,
                             timing=_time_rows(ss, case)),
                kernel1=dict(max_abs_err=err1, **t1,
                             timing=_time_words(ss, keys, w1, w2,
@@ -871,6 +1006,24 @@ def phase_kernel2_on_runner_path(stats_in, rows):
                **_shape(keys, case['num_groups']))
     emit('kernel2_on_runner_path', t0, **res)
     return res
+
+
+def _kernel2_memory(ss, case):
+    """Kernel 2's peak-memory increment over its inputs: its outputs (one
+    allocation) and at most 1 MiB more, since it reads the rows where
+    they lie."""
+    G = case['num_groups']
+    out_bytes = 4 * G * (len(case['weight_rows']) + 1
+                         + 2 * len(case['value_rows']))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ss.segmented_stats(**case)
+    torch.cuda.synchronize()
+    inc = torch.cuda.max_memory_allocated() - base
+    del out
+    check(inc <= out_bytes + 2 ** 20, (inc, out_bytes))
+    return dict(peak_increment_bytes=inc, output_bytes=out_bytes)
 
 
 def phase_selftest(raster_in):

@@ -9,7 +9,8 @@ rows). Both run one CUDA C++ kernel body for sm_90a with a row loader each
 (csrc/segmented_stats.cu), built with nvcc at first use into
 ``build/torch_kernels/`` under the repository root and bound with ctypes.
 A tensor on the CPU goes through the plain version; a CUDA tensor always
-goes through the kernel, and a failed build or launch raises.
+goes through the kernel, one launch per call, and a failed build or
+launch raises.
 """
 from __future__ import annotations
 
@@ -26,6 +27,12 @@ _SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'segmented_stats.cu'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
                '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# Cells (nsplit groups) of up to this many rows are computed from
+# registers, larger ones read their rows per statistic and take their
+# medians from shared-memory histograms; at most 127. Picked on the card
+# (PERF.md, "segmented-stats kernels").
+REGISTER_MEDIAN_ROWS = 127
 
 _lib = None
 
@@ -70,11 +77,10 @@ def load_library():
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.segmented_stats_words_launch
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
         fn.restype = i32
         fn = lib.segmented_stats_rows_launch
-        fn.argtypes = [ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr,
-                       ptr, ptr, ptr]
+        fn.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, i32, ptr, ptr]
         fn.restype = i32
         _lib = lib
     return _lib
@@ -94,36 +100,45 @@ def _check_inputs(sorted_c2, sorted_w1, sorted_w2, num_groups, med_nsplit):
                              'device')
 
 
-def _launch(launch_fn, keys, num_groups, n_weights, n_values, *args):
-    """Allocate the outputs, take the group bounds from the sorted keys
-    (so sentinel keys >= num_groups are never read) and launch on the
-    keys' device and current stream. ``args`` are the loader's arguments
-    and the cell size, in the C function's order. Returns (sums, zmin,
-    meds)."""
-    dev = keys.device
-    q = torch.arange(num_groups + 1, device=dev, dtype=torch.int32)
-    bounds = torch.searchsorted(keys, q, out_int32=True)
-    sums = torch.empty((num_groups, n_weights), device=dev,
-                       dtype=torch.float32)
-    zmin = torch.empty((num_groups,), device=dev, dtype=torch.float32)
-    meds = torch.empty((n_values, 2, num_groups), device=dev,
-                       dtype=torch.float32)
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(dev):
-        rc = launch_fn(bounds.data_ptr(), *args, sums.data_ptr(),
-                       zmin.data_ptr(), meds.data_ptr(),
-                       torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'segmented_stats kernel launch failed: CUDA '
-                           f'error {rc}')
-    return sums, zmin, meds
-
-
 def _device_of(keys, name):
     dev = keys.device
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'{name}: unsupported device {dev}')
+    if keys.shape[0] >= 2 ** 31:
+        raise ValueError(f'{name}: {keys.shape[0]} rows exceed int32')
     return dev.type
+
+
+def _outputs(keys, num_groups, n_weights, n_values):
+    """One float32 allocation on the keys' device and its (sums, zmin,
+    meds) views, as the kernel lays them out."""
+    G = num_groups
+    buf = torch.empty(G * (n_weights + 1 + 2 * n_values),
+                      dtype=torch.float32, device=keys.device)
+    return buf, (buf[:G * n_weights].view(G, n_weights),
+                 buf[G * n_weights:G * (n_weights + 1)],
+                 buf[G * (n_weights + 1):].view(n_values, 2, G))
+
+
+def _run(launch_fn, keys, *args):
+    """Launch on the keys' device and current stream; ``args`` follow the
+    keys in the C function's order, up to the output buffer."""
+    dev = keys.device
+    with torch.cuda.device(dev):
+        rc = launch_fn(keys.data_ptr(), keys.shape[0], *args,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'segmented_stats kernel launch failed: CUDA '
+                           f'error {rc}')
+
+
+def _launch_words(c2, w1, w2, num_groups, nsplit, n_values, buf,
+                  reg_max=REGISTER_MEDIAN_ROWS):
+    """Kernel 1 alone into ``buf`` (the layout of ``_outputs``); cells of
+    up to ``reg_max`` rows are computed from registers."""
+    _run(load_library().segmented_stats_words_launch, c2, w1.data_ptr(),
+         w2.data_ptr(), num_groups, nsplit, n_values, reg_max,
+         buf.data_ptr())
 
 
 def segmented_stats_words(sorted_c2, sorted_w1, sorted_w2, num_groups: int,
@@ -143,7 +158,7 @@ def segmented_stats_words(sorted_c2, sorted_w1, sorted_w2, num_groups: int,
 
     Returns (sums (G,4) [count, road, dyn, intensity], zmin (G,)[, meds
     (3,2,G) with hist_medians]), float32. Empty groups: sums 0, zmin +inf,
-    medians 0.
+    medians 0. On CUDA tensors the three are views of one allocation.
     """
     _check_inputs(sorted_c2, sorted_w1, sorted_w2, num_groups, med_nsplit)
     if _device_of(sorted_c2, 'segmented_stats_words') == 'cpu':
@@ -152,12 +167,10 @@ def segmented_stats_words(sorted_c2, sorted_w1, sorted_w2, num_groups: int,
             hist_medians)
     c2, w1, w2 = (t.contiguous() for t in (sorted_c2, sorted_w1, sorted_w2))
     n_values = 3 if hist_medians else 0
-    sums, zmin, meds = _launch(
-        load_library().segmented_stats_words_launch, c2, num_groups, 4,
-        n_values, w1.data_ptr(), w2.data_ptr(), num_groups, med_nsplit,
-        n_values)
+    buf, out = _outputs(c2, num_groups, 4, n_values)
+    _launch_words(c2, w1, w2, num_groups, med_nsplit, n_values, buf)
     segmented_stats_words.launches += 1
-    return (sums, zmin, meds) if hist_medians else (sums, zmin)
+    return out if hist_medians else out[:2]
 
 
 segmented_stats_words.launches = 0   # kernel launches (CUDA inputs only)
@@ -187,12 +200,25 @@ def _check_rows(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
                              'device')
 
 
-def _stack_rows(rows, like):
-    """(len(rows), N) contiguous float32 stack ((0, N) when empty)."""
-    if not rows:
-        return torch.empty((0, like.shape[0]), dtype=torch.float32,
-                           device=like.device)
-    return torch.stack([r.to(torch.float32) for r in rows]).contiguous()
+def _launch_rows(keys, weight_rows, z_sorted, value_rows, num_groups,
+                 nsplit, buf, reg_max=REGISTER_MEDIAN_ROWS):
+    """Kernel 2 alone into ``buf`` (the layout of ``_outputs``): the rows
+    are read where they lie, so each must be a contiguous float32 array."""
+    for t in (*weight_rows, z_sorted, *value_rows):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError('segmented_stats: on CUDA every weight, z and '
+                             'value row must be a contiguous float32 '
+                             f'tensor, got {t.dtype} with stride '
+                             f'{t.stride()}')
+    ptrs = [0] * 8
+    for k, t in enumerate(weight_rows):
+        ptrs[k] = t.data_ptr()
+    ptrs[4] = z_sorted.data_ptr()
+    for c, t in enumerate(value_rows):
+        ptrs[5 + c] = t.data_ptr()
+    _run(load_library().segmented_stats_rows_launch, keys,
+         (ctypes.c_void_p * 8)(*ptrs), len(weight_rows), len(value_rows),
+         num_groups, nsplit, reg_max, buf.data_ptr())
 
 
 def segmented_stats(sorted_keys, weight_rows, z_sorted, num_groups: int,
@@ -211,10 +237,13 @@ def segmented_stats(sorted_keys, weight_rows, z_sorted, num_groups: int,
       med_nsplit: 2 when groups interleave present/future, which adds the
         pair ('full') medians at even positions; 0 or 1 leave [:, 1] at 0.
 
+    On CUDA the kernel reads every weight, z and value row where it lies:
+    each must be a contiguous float32 tensor (a ValueError otherwise).
+
     Returns (sums (G, len(weight_rows)), zmin (G,)[, meds
     (len(value_rows), 2, G) when value_rows is given]), float32. Sums are
     taken in float64 and rounded once. Empty groups: sums 0, zmin +inf,
-    medians 0.
+    medians 0. On CUDA tensors the three are views of one allocation.
     """
     weight_rows, value_rows = list(weight_rows), list(value_rows)
     _check_rows(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
@@ -223,17 +252,12 @@ def segmented_stats(sorted_keys, weight_rows, z_sorted, num_groups: int,
         return segmented_stats_reference(sorted_keys, weight_rows, z_sorted,
                                          num_groups, value_rows, med_nsplit)
     keys = sorted_keys.contiguous()
-    w = _stack_rows(weight_rows, keys)
-    v = _stack_rows(value_rows, keys)
-    z = z_sorted.to(torch.float32).contiguous()
     nsplit = 2 if value_rows and med_nsplit == 2 else 1
-    sums, zmin, meds = _launch(
-        load_library().segmented_stats_rows_launch, keys, num_groups,
-        len(weight_rows), len(value_rows), w.data_ptr(), len(weight_rows),
-        z.data_ptr(), v.data_ptr(), len(value_rows), keys.shape[0],
-        num_groups, nsplit)
+    buf, out = _outputs(keys, num_groups, len(weight_rows), len(value_rows))
+    _launch_rows(keys, weight_rows, z_sorted, value_rows, num_groups, nsplit,
+                 buf)
     segmented_stats.launches += 1
-    return (sums, zmin, meds) if value_rows else (sums, zmin)
+    return out if value_rows else out[:2]
 
 
 segmented_stats.launches = 0   # kernel launches (CUDA inputs only)

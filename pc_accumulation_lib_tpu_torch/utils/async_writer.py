@@ -37,7 +37,7 @@ def _build_native() -> Optional[str]:
         subprocess.run(
             ['g++', '-O2', '-shared', '-fPIC', '-o', tmp, str(src), '-lz',
              '-lpthread'], check=True, capture_output=True)
-        os.replace(tmp, lib)   # atomic: concurrent builders never see half
+        os.replace(tmp, lib)   # atomic: a concurrent build never sees half
         return str(lib)
     except (OSError, subprocess.CalledProcessError) as e:
         print(f'fastio build failed ({e}); falling back to Python gzip')
