@@ -38,10 +38,11 @@
 //     owns chunks b, b + gridDim.x, ..., and its warps draw them one at a
 //     time from a shared counter. A warp owns the cells (nsplit consecutive
 //     groups) that start in its chunks.
-//   * A cell starts a window: the warp reads the 128 keys and rows from the
-//     cell's start at once and finds the cell's end and split by ballots.
-//     A cell of up to reg_max (<= 127) rows is computed from the window's
-//     registers, while the next cell's window is read. A longer cell finds
+//   * A cell starts a window: the warp reads the 128 keys and the first 32
+//     rows from the cell's start at once and finds the cell's end and
+//     split by ballots. A cell of up to reg_max (<= 127) rows is computed
+//     from registers (its other rows read when it has more than 32),
+//     while the next cell's window is read. A longer cell finds
 //     its end by a galloping warp search, sums its rows per group and
 //     builds 256-bin u32 histograms of all three channels in one pass, in
 //     dynamic shared memory (none when no medians are asked for); one warp
@@ -77,6 +78,9 @@ constexpr int kBins = 256;
 constexpr int kBinsPerLane = kBins / 32;
 constexpr int kWindow = 4;  // keys and rows read per lane from a cell start
 constexpr int kMaxRegRows = 32 * kWindow - 1;  // counts fit a byte's 7 bits
+// Window slots whose rows are read with the keys; the others only for a
+// cell longer than 32 * kEagerSlots rows.
+constexpr int kEagerSlots = 1;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kOnes = 0x00010101u;  // bit 0 of each channel's byte
 constexpr int kInfKey = 0x7f800000;  // float_key(+inf)
@@ -656,8 +660,21 @@ __device__ void write_empty_cell(const Out& out, int cell, int nsplit) {
   }
 }
 
-// The keys and rows pos + r * 32 + lane of a window (keys INT_MAX and
-// rows of zeros from `last` on).
+// Rows pos + r * 32 + lane of a window for slots r in [R0, R1) (zeros
+// from `last` on).
+template <int R0, int R1, class Rows>
+__device__ __forceinline__ void load_rows(const Rows& rows, const Out& out,
+                                          int pos, int last, int lane,
+                                          typename Rows::Row (&rw)[kWindow]) {
+#pragma unroll
+  for (int r = R0; r < R1; ++r) {
+    const int i = pos + r * 32 + lane;
+    rw[r] = i < last ? rows.load(i, out) : typename Rows::Row{};
+  }
+}
+
+// The keys pos + r * 32 + lane of a window (INT_MAX from `last` on) and
+// the rows of its first kEagerSlots slots.
 template <class Rows>
 __device__ __forceinline__ void load_window(const int* __restrict__ keys,
                                             const Rows& rows, const Out& out,
@@ -667,13 +684,9 @@ __device__ __forceinline__ void load_window(const int* __restrict__ keys,
 #pragma unroll
   for (int r = 0; r < kWindow; ++r) {
     const int i = pos + r * 32 + lane;
-    kw[r] = INT_MAX;
-    rw[r] = typename Rows::Row{};
-    if (i < last) {
-      kw[r] = __ldg(keys + i);
-      rw[r] = rows.load(i, out);
-    }
+    kw[r] = i < last ? __ldg(keys + i) : INT_MAX;
   }
+  load_rows<0, kEagerSlots>(rows, out, pos, last, lane, rw);
 }
 
 // The cells that start in keyed rows [s, s_end) and the empty cells
@@ -711,10 +724,12 @@ __device__ void process_chunk(const int* __restrict__ keys, int s, int s_end,
       if (e < s_end) load_window(keys, rows, out, e, last, lane, nkw, nrw);
       // Two register widths only: each is inlined whole, and more of them
       // cost more in instruction fetch than the idle slots they save.
-      if (len <= 64) {
-        register_cell<2, Rows>(out, g0, pos, mid, e, nsplit, lane, rw);
+      if (len <= 32 * kEagerSlots) {
+        register_cell<kEagerSlots, Rows>(out, g0, pos, mid, e, nsplit, lane,
+                                         rw);
       } else {
-        register_cell<4, Rows>(out, g0, pos, mid, e, nsplit, lane, rw);
+        load_rows<kEagerSlots, kWindow>(rows, out, pos, last, lane, rw);
+        register_cell<kWindow, Rows>(out, g0, pos, mid, e, nsplit, lane, rw);
       }
       if (e >= s_end) return;
 #pragma unroll
