@@ -42,8 +42,8 @@
 //     rows from the cell's start at once and finds the cell's end and
 //     split by ballots. A cell of up to reg_max (<= 127) rows is computed
 //     from registers (its other rows read when it has more than 32),
-//     while the next cell's window is read. A longer cell finds
-//     its end by a galloping warp search, sums its rows per group and
+//     while the next cell's window is read. A longer cell finds its end
+//     by a galloping warp search, sums its rows per group and
 //     builds 256-bin u32 histograms of all three channels in one pass, in
 //     dynamic shared memory (none when no medians are asked for); one warp
 //     scan per histogram yields both middle ranks.
@@ -54,7 +54,7 @@
 //   * Sums are reduced once per group with warp reductions: integer redux
 //     for the words' counts, flags and (in a register cell) intensity, 64
 //     bits for a longer cell's intensity (exact), float64 for the float
-//     rows (one rounding, so independent of row order).
+//     rows, rounded once to float32.
 //   * Register medians: each row's three u8 values sit in the bytes of one
 //     u32, and a radix select walks the 8 bits from the top: per bit one
 //     warp reduction counts, in three byte fields at once, the candidates
