@@ -319,8 +319,7 @@ def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
     ``wrapper``, ending in a synchronize; (iii) the bound and the share of
     it the device time reaches. Inputs stay warm in L2 between launches,
     as the sort that precedes the stats stage leaves them. Also checks
-    that one wrapper call runs one device operation (the kernel), and
-    times the kernel at each register threshold."""
+    that one wrapper call runs one device operation (the kernel)."""
     device_us = _events_us(raw, reps)
     wrapper()
     torch.cuda.synchronize()
@@ -340,40 +339,25 @@ def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
     return dict(device_us=device_us, device_us_profiler=_profiler_us(raw),
                 wrapper_us=wrapper_us, **bound,
                 bound_share=bound['bound_us'] / device_us,
-                device_ops_per_call=ops, profiled_ops_per_call=per_call,
-                device_us_by_register_rows=_register_sweep(raw))
+                device_ops_per_call=ops, profiled_ops_per_call=per_call)
 
 
 def _raw_words(ss, c2, w1, w2, G, nsplit=2):
-    """Kernel 1 alone: its output buffer made once, then only the launch
-    (at the wrapper's register threshold unless given another)."""
+    """Kernel 1 alone: its output buffer made once, then only the
+    launch."""
     buf, _ = ss._outputs(c2, G, 4, 3)
-    return lambda reg_max=ss.REGISTER_MEDIAN_ROWS: ss._launch_words(
-        c2, w1, w2, G, nsplit, 3, buf, reg_max)
+    return lambda: ss._launch_words(c2, w1, w2, G, nsplit, 3, buf)
 
 
 def _raw_rows(ss, case):
-    """Kernel 2 alone: its output buffer made once, then only the launch
-    (at the wrapper's register threshold unless given another)."""
+    """Kernel 2 alone: its output buffer made once, then only the
+    launch."""
     keys, G = case['sorted_keys'], case['num_groups']
     wr, vr = case['weight_rows'], case['value_rows']
     nsplit = 2 if vr and case['med_nsplit'] == 2 else 1
     buf, _ = ss._outputs(keys, G, len(wr), len(vr))
-    return lambda reg_max=ss.REGISTER_MEDIAN_ROWS: ss._launch_rows(
-        keys, wr, case['z_sorted'], vr, G, nsplit, buf, reg_max)
-
-
-REGISTER_SWEEP = (0, 64, 127)
-
-
-def _register_sweep(raw):
-    """The kernel's device time (torch.profiler, else CUDA events) at each
-    cell size up to which cells are computed from registers."""
-    out = {}
-    for r in REGISTER_SWEEP:
-        launch = lambda r=r: raw(r)
-        out[r] = _profiler_us(launch) or _events_us(launch)
-    return out
+    return lambda: ss._launch_rows(keys, wr, case['z_sorted'], vr, G,
+                                   nsplit, buf)
 
 
 def _device_ops(fn, calls=5, tries=3):

@@ -40,7 +40,7 @@
 //     groups) that start in its chunks.
 //   * A cell starts a window: the warp reads the 128 keys and the first 32
 //     rows from the cell's start at once and finds the cell's end and
-//     split by ballots. A cell of up to reg_max (<= 127) rows is computed
+//     split by ballots. A cell of up to kMaxRegRows (127) rows is computed
 //     from registers (its other rows read when it has more than 32),
 //     while the next cell's window is read. A longer cell finds its end
 //     by a galloping warp search, sums its rows per group and
@@ -77,7 +77,9 @@ constexpr int kChannels = 3;
 constexpr int kBins = 256;
 constexpr int kBinsPerLane = kBins / 32;
 constexpr int kWindow = 4;  // keys and rows read per lane from a cell start
-constexpr int kMaxRegRows = 32 * kWindow - 1;  // counts fit a byte's 7 bits
+// Cells of up to this many rows are computed from registers, longer ones
+// from shared-memory histograms: the most whose counts fit a byte's 7 bits.
+constexpr int kMaxRegRows = 32 * kWindow - 1;
 // Window slots whose rows are read with the keys; the others only for a
 // cell longer than 32 * kEagerSlots rows.
 constexpr int kEagerSlots = 1;
@@ -696,8 +698,8 @@ __device__ __forceinline__ void load_window(const int* __restrict__ keys,
 template <class Rows>
 __device__ void process_chunk(const int* __restrict__ keys, int s, int s_end,
                               int first, int last, const Rows& rows,
-                              const Out& out, int nsplit, int reg_max,
-                              unsigned* hist, int lane) {
+                              const Out& out, int nsplit, unsigned* hist,
+                              int lane) {
   int pos = s, prev = -1;
   if (s > first) {
     prev = __ldg(keys + s - 1) / nsplit;
@@ -718,7 +720,7 @@ __device__ void process_chunk(const int* __restrict__ keys, int s, int s_end,
       for (int c = prev + 1 + lane; c < cell; c += 32) write_empty_cell(out, c, nsplit);
     }
     const int len = e - pos;
-    if (e >= 0 && len <= reg_max) {
+    if (e >= 0 && len <= kMaxRegRows) {
       int nkw[kWindow];
       typename Rows::Row nrw[kWindow];
       if (e < s_end) load_window(keys, rows, out, e, last, lane, nkw, nrw);
@@ -759,7 +761,7 @@ __device__ void process_chunk(const int* __restrict__ keys, int s, int s_end,
 template <class Rows>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSM)
 segmented_stats_kernel(const int* __restrict__ keys, int n, Rows rows,
-                       Out out, int nsplit, int reg_max) {
+                       Out out, int nsplit) {
   extern __shared__ __align__(16) unsigned smem[];
   const int lane = threadIdx.x & 31;
   const int warp_in_block = threadIdx.x >> 5;
@@ -798,7 +800,7 @@ segmented_stats_kernel(const int* __restrict__ keys, int n, Rows rows,
     if (chunk >= num_chunks) break;
     const int s = first + static_cast<int>(chunk) * kChunkRows;
     process_chunk(keys, s, min(last, s + kChunkRows), first, last, rows, out,
-                  nsplit, reg_max, hist, lane);
+                  nsplit, hist, lane);
   }
 }
 
@@ -810,12 +812,10 @@ constexpr int smem_bytes(int nsplit) {
 
 template <class Rows>
 int launch(const int* keys, int n, Rows rows, int num_groups, int nsplit,
-           int n_weights, int n_values, int reg_max, float* out_buf,
-           void* stream) {
+           int n_weights, int n_values, float* out_buf, void* stream) {
   if (n < 0 || num_groups < 0 || nsplit < 1 || nsplit > kMaxSplit ||
       num_groups % nsplit != 0 || n_weights < 0 || n_weights > kMaxWeights ||
-      n_values < 0 || n_values > kChannels || reg_max < 0 ||
-      reg_max > kMaxRegRows) {
+      n_values < 0 || n_values > kChannels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_groups == 0) return static_cast<int>(cudaGetLastError());
@@ -849,7 +849,7 @@ int launch(const int* keys, int n, Rows rows, int num_groups, int nsplit,
   const int smem = smem_bytes(split_smem);
   segmented_stats_kernel<Rows><<<blocks, kWarpsPerBlock * 32, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
-      keys, n, rows, out, nsplit, reg_max);
+      keys, n, rows, out, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -859,19 +859,18 @@ int launch(const int* keys, int n, Rows rows, int num_groups, int nsplit,
 // not counted); w1, w2: (n,) payload words in the same order; out: one
 // float32 buffer of num_groups * (4 + 1 + 2 * n_values): sums (num_groups,
 // 4), zmin (num_groups,), meds (n_values, 2, num_groups). n_values is 3 or
-// 0 (no medians); nsplit 2 adds the pair medians; cells of up to reg_max
-// rows (<= 127) are computed from registers. Launches on `stream` and
+// 0 (no medians); nsplit 2 adds the pair medians. Launches on `stream` and
 // returns cudaGetLastError().
 extern "C" int segmented_stats_words_launch(const int* keys, int n,
                                             const int* w1, const int* w2,
                                             int num_groups, int nsplit,
-                                            int n_values, int reg_max,
-                                            float* out, void* stream) {
+                                            int n_values, float* out,
+                                            void* stream) {
   if (n_values != 0 && n_values != kChannels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(keys, n, WordsRows{w1, w2}, num_groups, nsplit, kMaxWeights,
-                n_values, reg_max, out, stream);
+                n_values, out, stream);
 }
 
 // keys: (n,) int32 group keys, ascending; rows: 8 device pointers, the
@@ -883,12 +882,11 @@ extern "C" int segmented_stats_rows_launch(const int* keys, int n,
                                            const float* const* rows,
                                            int n_weights, int n_values,
                                            int num_groups, int nsplit,
-                                           int reg_max, float* out,
-                                           void* stream) {
+                                           float* out, void* stream) {
   FloatRows r{};
   for (int k = 0; k < kMaxWeights; ++k) r.w[k] = rows[k];
   r.z = rows[kMaxWeights];
   for (int c = 0; c < kChannels; ++c) r.v[c] = rows[kMaxWeights + 1 + c];
-  return launch(keys, n, r, num_groups, nsplit, n_weights, n_values, reg_max,
-                out, stream);
+  return launch(keys, n, r, num_groups, nsplit, n_weights, n_values, out,
+                stream);
 }

@@ -28,12 +28,6 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
                '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-# Cells (nsplit groups) of up to this many rows are computed from
-# registers, larger ones read their rows per statistic and take their
-# medians from shared-memory histograms; at most 127. Picked on the card
-# (PERF.md, "segmented-stats kernels").
-REGISTER_MEDIAN_ROWS = 127
-
 _lib = None
 
 
@@ -77,10 +71,10 @@ def load_library():
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.segmented_stats_words_launch
-        fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
+        fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
         fn.restype = i32
         fn = lib.segmented_stats_rows_launch
-        fn.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, i32, ptr, ptr]
+        fn.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr]
         fn.restype = i32
         _lib = lib
     return _lib
@@ -132,13 +126,10 @@ def _run(launch_fn, keys, *args):
                            f'error {rc}')
 
 
-def _launch_words(c2, w1, w2, num_groups, nsplit, n_values, buf,
-                  reg_max=REGISTER_MEDIAN_ROWS):
-    """Kernel 1 alone into ``buf`` (the layout of ``_outputs``); cells of
-    up to ``reg_max`` rows are computed from registers."""
+def _launch_words(c2, w1, w2, num_groups, nsplit, n_values, buf):
+    """Kernel 1 alone into ``buf`` (the layout of ``_outputs``)."""
     _run(load_library().segmented_stats_words_launch, c2, w1.data_ptr(),
-         w2.data_ptr(), num_groups, nsplit, n_values, reg_max,
-         buf.data_ptr())
+         w2.data_ptr(), num_groups, nsplit, n_values, buf.data_ptr())
 
 
 def segmented_stats_words(sorted_c2, sorted_w1, sorted_w2, num_groups: int,
@@ -201,7 +192,7 @@ def _check_rows(sorted_keys, weight_rows, z_sorted, num_groups, value_rows,
 
 
 def _launch_rows(keys, weight_rows, z_sorted, value_rows, num_groups,
-                 nsplit, buf, reg_max=REGISTER_MEDIAN_ROWS):
+                 nsplit, buf):
     """Kernel 2 alone into ``buf`` (the layout of ``_outputs``): the rows
     are read where they lie, so each must be a contiguous float32 array."""
     for t in (*weight_rows, z_sorted, *value_rows):
@@ -218,7 +209,7 @@ def _launch_rows(keys, weight_rows, z_sorted, value_rows, num_groups,
         ptrs[5 + c] = t.data_ptr()
     _run(load_library().segmented_stats_rows_launch, keys,
          (ctypes.c_void_p * 8)(*ptrs), len(weight_rows), len(value_rows),
-         num_groups, nsplit, reg_max, buf.data_ptr())
+         num_groups, nsplit, buf.data_ptr())
 
 
 def segmented_stats(sorted_keys, weight_rows, z_sorted, num_groups: int,
