@@ -12,8 +12,13 @@ back its samples, holds the words route against the unpacked route
 rasters' rows, and the raster with the kernels against the raster
 without them on one of its samples. It drives the runner a second time
 with every raster's stats stage on the unpacked route (kernel 2) and
-holds its samples against the first run's. It checks a GPU run against a
-CPU run at test size, for step() and for the runner.
+holds its samples against the first run's. It drives the NuScenes
+oracle-pose accumulator at the JAX bench's oracle configuration (6
+cameras, tracking, the dynamic table) and holds both kernels against
+their plain versions on one of its rasters' rows, then the NuScenes
+runner's two phases at run()'s defaults with oracle poses and its ICP
+branch. It checks a GPU run against a CPU run at test size, for step(),
+the KITTI-360 runner and the oracle accumulator.
 
     python3 chip_smoke.py
 
@@ -74,6 +79,33 @@ N_STEPS = 9
 # frames give one sample.
 RUNNER_FRAMES = 120
 RUNNER_MIN_SAMPLES = 10
+
+# The JAX bench's NuScenes oracle workload (bench.py:134-206) without its
+# remote link: 20 synthetic frames 2 m apart, 6 cameras of 448x800,
+# full-depth ResNet-50, the bench's caps (32 frames x 49,152 painted rows
+# per raster; the port's seed-0 model paints under 9k points per frame
+# here, so the cap stands), the 80 m / 256 px BEV with the NuScenes road
+# marking parameters, the dense float16 fetch in place of the bench's
+# sparse one. 4 warm-up frames, then one upload + integrate +
+# generate_bev per frame, each frame's samples harvested one frame later.
+# A straight lane centerline along the drive is injected (gt_lanes).
+NUSCENES_FILTERS = (10, 11, 12, 16, 18)
+ORACLE_STREAM = dict(step=2.0, lidar_range=50.0, seed=0, img_hw=(448, 800))
+ORACLE_FRAMES, ORACLE_WARMUP = 20, 4
+ORACLE_ACCUM = dict(max_points_per_frame=65536, max_frames=32,
+                    max_painted_points_per_frame=49152)
+ORACLE_BEV = dict(type='sem', view_size=80, pixel_size=256, int_scaler=1.,
+                  int_sep_scaler=30., int_mid_threshold=0.12,
+                  fetch_dtype='float16')
+# The NuScenes runner at run()'s defaults (runners/nuscenes_bev_gen.py):
+# AccumConfig() (256 x 131,072 rows per raster), SamplingConfig(80 m), the
+# runner's BEV, oracle pose, on 100 frames of the same stream: a real
+# scene has ~40 keyframes, but at 2 m per frame that leaves no pose with
+# 80 m of path on both sides. Then the ICP branch (horizon 200 m,
+# ICPConfig(max_corr_dist=1e3)) on the stream's first 12 frames, whose
+# steps must come out at the stream's 2 m within 0.4 m.
+NUSC_RUNNER_FRAMES, NUSC_ICP_FRAMES = 100, 12
+STEP_ATOL = 0.4
 
 # Kernel-vs-plain tolerance: everything exact except the float sums.
 INTENSITY_RTOL = 1e-5
@@ -643,6 +675,10 @@ def phase_kernel_on_main_path(raster_in):
                **_time_pair(ss, c2, w1, w2, G), **_shape(c2, G),
                timing=_time_words(ss, c2, w1, w2, G),
                kernel2=dict(max_abs_err=_compare2(ss, case2),
+                            **_time_turns(
+                                lambda: ss.segmented_stats(**case2),
+                                lambda: ss.segmented_stats_reference(
+                                    **case2)),
                             timing=_time_rows(ss, case2)))
     emit('kernel_on_main_path', t0, **res)
     return res
@@ -917,7 +953,7 @@ def _map_mismatch(a, b):
         sb = b[f]
         check(set(sa) == set(sb), f)
         for k in sa:
-            if k.startswith('trajs'):
+            if k.startswith('trajs') or k == 'gt_lanes':
                 check(len(sa[k]) == len(sb[k]), (f, k))
                 continue
             d = np.abs(sa[k].astype(np.float32) - sb[k].astype(np.float32))
@@ -926,10 +962,12 @@ def _map_mismatch(a, b):
     return mism, err
 
 
-def phase_kernel2_on_runner_path(stats_in, rows):
+def phase_kernel2_on_runner_path(stats_in, rows,
+                                 phase='kernel2_on_runner_path'):
     """The stats stage of one runner raster, on the rows it got: the words
     route (kernel 1) against the unpacked route (kernel 2), then each
-    kernel against its plain version on the sorted rows it gets there."""
+    kernel against its plain version on the sorted rows it gets there.
+    Also counts the keyed rows whose dyn flag (word1 bit 24) is set."""
     from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
     from pc_accumulation_lib_tpu_torch.ops import sort_raster
     t0 = time.perf_counter()
@@ -980,15 +1018,17 @@ def phase_kernel2_on_runner_path(stats_in, rows):
     nsplit = 2 if gen_future else 1
     err1 = _compare(ss, keys, w1, w2, n_cells * nsplit)
     t1 = _time_pair(ss, keys, w1, w2, n_cells * nsplit)
+    keyed = keys < n_cells * nsplit
     res = dict(replay_kernel2_launches=launches2,
                words_vs_unpacked_max_abs=route_err,
+               keyed_dyn_rows=int((((w1 >> 24) & 1).bool() & keyed).sum()),
                kernel2=dict(max_abs_err=err2, **t2, **mem,
                             timing=_time_rows(ss, case)),
                kernel1=dict(max_abs_err=err1, **t1,
                             timing=_time_words(ss, keys, w1, w2,
                                                n_cells * nsplit)),
                **_shape(keys, case['num_groups']))
-    emit('kernel2_on_runner_path', t0, **res)
+    emit(phase, t0, **res)
     return res
 
 
@@ -1108,16 +1148,349 @@ def phase_gpu_vs_cpu(dev):
          runner_max_cell_mismatch_fraction=runner_mism,
          runner_gpu_kernel_launches=gl)
     check(runner_mism < MAP_MISMATCH, runner_mism)
+    t0 = time.perf_counter()
+    emit('gpu_vs_cpu_oracle', t0, **_oracle_gpu_vs_cpu(dev))
 
 
-def _kernel_entry(name, replaces, launches, max_abs_err, on_runner):
+def _oracle_lane(stream, n_frames):
+    """A straight lane centerline along the drive, in global coordinates."""
+    x = np.linspace(0.0, stream.ego_pose(n_frames - 1)[0]
+                    + stream.lidar_range, 200)
+    return [np.stack([x, np.zeros_like(x), np.zeros_like(x)], 1)]
+
+
+def _check_nuscenes_sample(b, P, lanes=True):
+    """The keys the JAX package's oracle test checks
+    (tests/test_nuscenes.py:111-131): the 15 maps, the three trajectory
+    sets with the moving car's among the full ones, and gt_lanes."""
+    _check_sample({k: v for k, v in b.items()
+                   if k != 'gt_lanes' and not isinstance(v, (str, int, float))},
+                  P)
+    check(len(b['trajs_full']) >= 2, len(b['trajs_full']))
+    if lanes:
+        check(len(b['gt_lanes']) >= 1, 'gt_lanes')
+    check(float(b['road_full'].astype(np.float32).min()) < 0.4, 'road_full')
+    check((b['rgb_full'].astype(np.float32) > 0).any(), 'rgb_full')
+    check((b['elevation_full'] != 0).any(), 'elevation_full')
+    check((b['dynamic_full'] != 0.5).any(), 'dynamic_full')
+
+
+def _check_tracking(accum):
+    """The moving car is flagged dynamic in the device table, the parked
+    car is not."""
+    tr = accum.tracker
+    inst_dyn = accum.state.inst_dyn.cpu()
+    moving = float(inst_dyn[tr.token2global['car_moving']])
+    parked = float(inst_dyn[tr.token2global['car_parked']])
+    check(tr.dyn_instances == ['car_moving'], tr.dyn_instances)
+    check(moving == 1.0 and parked == 0.0, (moving, parked))
+    return dict(moving_car_dyn=moving, parked_car_dyn=parked)
+
+
+def phase_oracle_path(dev):
+    """The NuScenes oracle-pose accumulator at the JAX bench's oracle
+    configuration: per frame the next frame's upload, integrate (6-camera
+    semseg, paint, insert, tracking, the dyn-table update) and
+    generate_bev of the previous pose, whose samples are harvested one
+    frame later. Returns the result and the stats-stage inputs of the
+    last raster."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
+        NuScenesOracleSemanticPointCloudAccumulator)
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticNuScenesStream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    t0 = time.perf_counter()
+    stream = SyntheticNuScenesStream(n_frames=ORACLE_FRAMES, **ORACLE_STREAM)
+    frames = [stream.frame(i) for i in range(ORACLE_FRAMES)]
+    semseg = SemSegTorch(dev, seed=0)
+    accum = NuScenesOracleSemanticPointCloudAccumulator(
+        semseg_model=semseg, semseg_filters=NUSCENES_FILTERS,
+        bev_params=dict(ORACLE_BEV), loc='synth', get_gt_lanes=True,
+        gt_lane_poses=_oracle_lane(stream, ORACLE_FRAMES),
+        accum_cfg=cfg.AccumConfig(**ORACLE_ACCUM), seed=0, device=dev)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        for f in frames[:ORACLE_WARMUP]:
+            accum.integrate([f])
+        accum.generate_bev(present_idx=ORACLE_WARMUP - 2, bev_num=1,
+                           gen_future=True)
+    torch.cuda.synchronize()
+    stats_in = []
+    split_stats = sort_raster.split_stats_from_words_flat
+
+    def capture_stats(*args, **kwargs):
+        stats_in[:] = [args, kwargs]
+        return split_stats(*args, **kwargs)
+
+    # Per frame: wall-clock, CUDA events around integrate and the
+    # generate_bev dispatch (device spans), and host time of integrate,
+    # the generate_bev dispatch and the previous frame's harvest.
+    samples, frame_s, spans, host_ms = [], [], [], []
+    up_bytes, up_frames = accum.upload_bytes_total, accum.upload_frames
+    torch.cuda.reset_peak_memory_stats()
+    sort_raster.split_stats_from_words_flat = capture_stats
+    ss.segmented_stats_words.launches = 0
+    ts = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            nxt = accum.upload_obs(frames[ORACLE_WARMUP])
+            pending = None
+            for i in range(ORACLE_WARMUP, ORACLE_FRAMES):
+                tf = time.perf_counter()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                accum.integrate([nxt])
+                ev[1].record()
+                th = time.perf_counter()
+                handle = accum.generate_bev(
+                    present_idx=len(accum.poses) - 2, bev_num=1,
+                    gen_future=True, async_fetch=True)
+                ev[2].record()
+                tu = time.perf_counter()
+                if i + 1 < ORACLE_FRAMES:
+                    nxt = accum.upload_obs(frames[i + 1])
+                tp = time.perf_counter()
+                if pending is not None:
+                    samples += pending()
+                pending = handle
+                spans.append(ev)
+                host_ms.append([(th - tf) * 1e3, (tu - th) * 1e3,
+                                (time.perf_counter() - tp) * 1e3])
+                frame_s.append(time.perf_counter() - tf)
+            tf = time.perf_counter()
+            samples += pending()
+            torch.cuda.synchronize()
+            frame_s[-1] += time.perf_counter() - tf
+    finally:
+        sort_raster.split_stats_from_words_flat = split_stats
+    loop_s = time.perf_counter() - ts
+    launches = ss.segmented_stats_words.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_timed = ORACLE_FRAMES - ORACLE_WARMUP
+    check(len(samples) == n_timed, len(samples))
+    check(launches == len(samples), (launches, len(samples)))
+    for b in samples:
+        _check_nuscenes_sample(b, ORACLE_BEV['pixel_size'])
+    tracking = _check_tracking(accum)
+    check(accum.max_painted <= accum.accum_cfg.painted_cap,
+          accum.max_painted)
+    integrate_ms = [a.elapsed_time(b) for a, b, _ in spans]
+    generate_ms = [b.elapsed_time(c) for _, b, c in spans]
+    # The 6-camera semseg forward alone (uint8 -> float on the device and
+    # the batched ResNet-50), CUDA events, median of 10.
+    imgs = torch.from_numpy(np.stack(frames[-1]['images'])).to(dev)
+    semseg_ms = _median_ms(lambda: semseg.predict(imgs.to(torch.float32)),
+                           reps=10)
+    steady = frame_s[1:]
+    res = dict(frames=ORACLE_FRAMES, warmup_frames=ORACLE_WARMUP,
+               samples=len(samples), launches=launches,
+               launches_per_sample=launches / len(samples),
+               samples_per_s_median=1.0 / statistics.median(steady),
+               samples_per_s_overall=len(samples) / loop_s,
+               frame_ms=[s * 1e3 for s in frame_s],
+               integrate_ms_median=statistics.median(integrate_ms),
+               generate_bev_ms_median=statistics.median(generate_ms),
+               integrate_ms=integrate_ms, generate_bev_ms=generate_ms,
+               host_ms_median=dict(zip(
+                   ('integrate', 'generate_bev_dispatch', 'harvest'),
+                   np.median(np.array(host_ms), axis=0).tolist())),
+               semseg_6cam_ms=semseg_ms,
+               upload_mb_per_frame=(accum.upload_bytes_total - up_bytes)
+               / max(accum.upload_frames - up_frames, 1) / 1e6,
+               max_painted_per_frame=accum.max_painted,
+               painted_cap=accum.accum_cfg.painted_cap,
+               points_per_frame=[int(f['pc'].shape[0])
+                                 for f in frames[ORACLE_WARMUP::4]],
+               rows_per_raster=accum.state.valid.numel(),
+               max_memory_allocated_bytes=peak, **tracking)
+    emit('oracle_path', t0, **res)
+    return res, stats_in
+
+
+def _nuscenes_runner_accum(dev, semseg, oracle):
+    """The accumulator as the NuScenes runner's run() builds it, at its
+    defaults."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.accum.nuscenes import (
+        NuScenesSemanticPointCloudAccumulator)
+    from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
+        NuScenesOracleSemanticPointCloudAccumulator)
+    from pc_accumulation_lib_tpu_torch.runners import nuscenes_bev_gen as nr
+    bev = dict(nr.DEFAULT_BEV_PARAMS)
+    if oracle:
+        return NuScenesOracleSemanticPointCloudAccumulator(
+            semseg, nr.NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False, bev,
+            'synth', False, None, accum_cfg=None, device=dev)
+    return NuScenesSemanticPointCloudAccumulator(
+        200.0, 1e3, semseg, nr.NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False,
+        bev, 'synth', accum_cfg=None, icp_cfg=None, device=dev)
+
+
+def phase_nuscenes_runner_path(dev):
+    """The NuScenes runner's two phases at run()'s defaults with oracle
+    poses: phase 1 integrates the whole 100-frame stream, phase 2
+    (sample_scene_bevs through write_scene_samples) rasters each sampled
+    pose once (kernel 1) and writes the samples with their metadata
+    through the async writer; they are read back. Then the ICP branch on
+    the stream's first 12 frames."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticNuScenesStream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.runners import nuscenes_bev_gen as nr
+    from pc_accumulation_lib_tpu_torch.utils.async_writer import (
+        AsyncPickleWriter)
+    t0 = time.perf_counter()
+    stream = SyntheticNuScenesStream(n_frames=NUSC_RUNNER_FRAMES,
+                                     **ORACLE_STREAM)
+    semseg = SemSegTorch(dev, seed=0)
+    accum = _nuscenes_runner_accum(dev, semseg, oracle=True)
+    P = nr.DEFAULT_BEV_PARAMS['pixel_size']
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ss.segmented_stats_words.launches = 0
+    with tempfile.TemporaryDirectory() as out_dir, \
+            contextlib.redirect_stdout(log):
+        ts = time.perf_counter()
+        for observations in stream:
+            accum.integrate(observations)
+        accum.check_painted()
+        torch.cuda.synchronize()
+        integrate_s = time.perf_counter() - ts
+        integrate_launches = ss.segmented_stats_words.launches
+        writer = AsyncPickleWriter()
+        ts = time.perf_counter()
+        n = nr.write_scene_samples(
+            accum, 0, cfg.SamplingConfig(bev_horizon_dist=80.0),
+            cfg.OutputConfig(out_dir, viz_to_disk=False), 0, writer)
+        writer.wait()
+        sample_s = time.perf_counter() - ts
+        launches = ss.segmented_stats_words.launches
+        peak = torch.cuda.max_memory_allocated()
+        samples = _read_samples(out_dir)
+    check(integrate_launches == 0, integrate_launches)
+    check(n >= RUNNER_MIN_SAMPLES and len(samples) == n, (n, len(samples)))
+    check(launches == n, (launches, n))
+    for name, b in samples.items():
+        _check_nuscenes_sample(b, P, lanes=False)
+        check(b['scene_idx'] == 0 and b['map'] == 'synth', name)
+        check(isinstance(b['ego_global_x'], float)
+              and isinstance(b['ego_global_y'], float), name)
+    xs = sorted(b['ego_global_x'] for b in samples.values())
+    tracking = _check_tracking(accum)
+    res = dict(frames=NUSC_RUNNER_FRAMES, samples=n, launches=launches,
+               integrate_s=integrate_s,
+               integrate_ms_per_frame=integrate_s * 1e3 / NUSC_RUNNER_FRAMES,
+               sample_write_s=sample_s, samples_per_s_phase2=n / sample_s,
+               samples_per_s_both_phases=n / (integrate_s + sample_s),
+               rows_per_raster=accum.state.valid.numel(),
+               sampled_ego_x=[xs[0], xs[-1]],
+               max_painted_per_frame=accum.max_painted,
+               async_writer_native=writer.native,
+               max_memory_allocated_bytes=peak, **tracking)
+    del accum, samples
+    # The ICP branch of run() on the stream's first frames.
+    icp = _nuscenes_runner_accum(dev, semseg, oracle=False)
+    ss.segmented_stats_words.launches = 0
+    ts = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        for i in range(NUSC_ICP_FRAMES):
+            icp.integrate([stream.frame(i)])
+        bev = icp.generate_bev(present_idx=len(icp.poses) - 2, bev_num=1,
+                               gen_future=True)[0]
+    torch.cuda.synchronize()
+    icp_s = time.perf_counter() - ts
+    icp_launches = ss.segmented_stats_words.launches
+    steps = np.linalg.norm(np.diff(icp.get_pose(), axis=0), axis=1)
+    step_err = float(np.abs(steps - stream.step).max())
+    check(step_err <= STEP_ATOL, steps.tolist())
+    check(icp_launches == 1, icp_launches)
+    _check_sample(bev, P)
+    res.update(icp_frames=NUSC_ICP_FRAMES, icp_max_step_err_m=step_err,
+               icp_steps_m=steps.tolist(), icp_launches=icp_launches,
+               icp_ms_per_frame=icp_s * 1e3 / NUSC_ICP_FRAMES)
+    emit('nuscenes_runner_path', t0, **res)
+    return res
+
+
+def _oracle_small(d, frames, lanes):
+    """The JAX package's oracle test fixture (tests/test_nuscenes.py:18-22,
+    76-88) on device ``d``, with a float32 reduced-depth model: poses,
+    the dyn table and the sample at present_idx 5."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
+        NuScenesOracleSemanticPointCloudAccumulator)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    semseg = SemSegTorch(d, seed=0, stage_sizes=(1, 1, 1, 1),
+                         compute_dtype=torch.float32)
+    a = NuScenesOracleSemanticPointCloudAccumulator(
+        semseg_model=semseg,
+        bev_params=dict(type='sem', view_size=40, pixel_size=64,
+                        int_scaler=1., int_sep_scaler=30.,
+                        int_mid_threshold=0.12),
+        loc='synth-map', get_gt_lanes=True, gt_lane_poses=lanes,
+        accum_cfg=cfg.AccumConfig(max_points_per_frame=16384, max_frames=32,
+                                  max_painted_points_per_frame=16384,
+                                  max_instances=64), seed=0, device=d)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for f in frames:
+            a.integrate([f])
+    bev = a.generate_bev(present_idx=5, bev_num=1, gen_future=True)[0]
+    return np.array(a.poses), a.state.inst_dyn.cpu().numpy(), bev
+
+
+def _oracle_gpu_vs_cpu(dev):
+    """The oracle fixture's frames on both devices: poses within 1e-4 m,
+    the dyn tables equal, maps under the step() rule. The GPU model runs
+    in float32 with TF32 off in cuDNN, as on the CPU."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticNuScenesStream)
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    stream = SyntheticNuScenesStream(n_frames=10, step=2.0, lidar_range=20.0,
+                                     seed=2)
+    frames = [stream.frame(i) for i in range(10)]
+    lanes = [np.stack([np.linspace(0, 100, 101), np.zeros(101),
+                       np.zeros(101)], 1)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = ss.segmented_stats_words.launches
+        gpu = _oracle_small(dev, frames, lanes)
+        launches = ss.segmented_stats_words.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = _oracle_small(torch.device('cpu'), frames, lanes)
+    check(launches == 1, launches)
+    pose_err = float(np.abs(gpu[0] - cpu[0]).max())
+    check(pose_err <= POSE_ATOL, pose_err)
+    check(np.array_equal(gpu[1], cpu[1]) and gpu[1].max() == 1.0,
+          'inst_dyn differs')
+    mism, err = _map_mismatch({'s': gpu[2]}, {'s': cpu[2]})
+    check(mism < MAP_MISMATCH, mism)
+    for k in ('trajs_full', 'gt_lanes'):
+        check(len(gpu[2][k]) == len(cpu[2][k]), k)
+    return dict(oracle_max_pose_err_m=pose_err,
+                oracle_inst_dyn_equal=True,
+                oracle_max_cell_mismatch_fraction=mism,
+                oracle_max_abs=err, oracle_gpu_kernel_launches=launches)
+
+
+def _kernel_entry(name, replaces, launches, max_abs_err, on_runner,
+                  launches_by_path):
     """One kernel's entry of the kernels line, at a runner raster's rows:
     ``ms`` is the kernel's own device time, ``plain_ms`` the plain
     version's; no single PyTorch call computes this function, so
-    ``library_ms`` is null."""
+    ``library_ms`` is null. ``launches`` is the KITTI-360 runner's count,
+    ``launches_by_path`` each driven path's."""
     t = on_runner['timing']
     return {'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
             'replaces': replaces, 'launches': launches,
+            'launches_by_path': launches_by_path,
             'max_abs_err': max_abs_err, 'ms': t['device_us'] / 1e3,
             'plain_ms': on_runner['plain_ms'],
             'bound_ms': t['bound_us'] / 1e3, 'bound_by': t['bound_by'],
@@ -1147,29 +1520,47 @@ def main():
     del runner_raster_in
     runner2 = phase_runner_path(dev, words_kernel=False, reference=samples)[0]
     del samples
+    oracle, oracle_stats_in = phase_oracle_path(dev)
+    on_oracle = phase_kernel2_on_runner_path(
+        oracle_stats_in, oracle['rows_per_raster'],
+        phase='kernels_on_oracle_path')
+    del oracle_stats_in
+    nusc_runner = phase_nuscenes_runner_path(dev)
     phase_gpu_vs_cpu(dev)
-    # Each kernel's timing at the three shapes: made-up bench raster rows,
-    # a step() raster's rows, a runner raster's rows.
+    # Each kernel's timing at four shapes: made-up bench raster rows, a
+    # step() raster's rows, a KITTI-360 runner raster's rows, an oracle
+    # raster's rows.
     shapes = {'segmented_stats_words': dict(
         bench=kern['timing'], step_raster=on_path['timing'],
-        runner_raster=on_runner['kernel1']['timing']),
+        runner_raster=on_runner['kernel1']['timing'],
+        oracle_raster=on_oracle['kernel1']['timing']),
         'segmented_stats': dict(
         bench=kern2['timing'], step_raster=on_path['kernel2']['timing'],
-        runner_raster=on_runner['kernel2']['timing'])}
+        runner_raster=on_runner['kernel2']['timing'],
+        oracle_raster=on_oracle['kernel2']['timing'])}
     emit('kernel_timing', time.perf_counter(), **shapes)
     print(card, flush=True)
     print(json.dumps({'kernels': [
         _kernel_entry('segmented_stats_words', KERNEL_REPLACES,
                       runner['launches'],
                       max(kern['max_abs_err'], on_path['max_abs_err'],
-                          on_runner['kernel1']['max_abs_err']),
-                      on_runner['kernel1']),
+                          on_runner['kernel1']['max_abs_err'],
+                          on_oracle['kernel1']['max_abs_err']),
+                      on_runner['kernel1'],
+                      {'step': main_res['launches'],
+                       'kitti360_runner': runner['launches'],
+                       'nuscenes_oracle': oracle['launches'],
+                       'nuscenes_runner': nusc_runner['launches'],
+                       'nuscenes_runner_icp': nusc_runner['icp_launches']}),
         _kernel_entry('segmented_stats', KERNEL2_REPLACES,
                       runner2['kernel2_launches'],
                       max(kern2['max_abs_err'],
                           on_path['kernel2']['max_abs_err'],
-                          on_runner['kernel2']['max_abs_err']),
-                      on_runner['kernel2'])]}), flush=True)
+                          on_runner['kernel2']['max_abs_err'],
+                          on_oracle['kernel2']['max_abs_err']),
+                      on_runner['kernel2'],
+                      {'kitti360_runner_unpacked':
+                       runner2['kernel2_launches']})]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,11 @@
 device point buffer.
 
 Counterpart of accum/base.py. Points are stored once in a fixed world
-frame (frame 0); the world -> newest-ego transform is folded into the
-raster at BEV time. Memory-horizon eviction advances a window start; the
-device read path masks by frame id and never moves data.
+frame (frame 0). BEVs are in the newest ego frame (bev_ref_frame =
+'latest', the ICP accumulators: the world -> newest-ego transform is folded
+into the raster) or in the fixed world frame ('world', the oracle-pose
+accumulator). Memory-horizon eviction advances a window start; the device
+read path masks by frame id and never moves data.
 """
 from __future__ import annotations
 
@@ -23,8 +25,11 @@ from pc_accumulation_lib_tpu_torch.utils.io import (read_compressed_pickle,
 
 class SemanticPointCloudAccumulator:
     """Base accumulator on ``device`` (the card unless the caller passes
-    'cpu'). Subclasses implement the per-platform integrate path; BEVs are
-    in the newest ego frame."""
+    'cpu'). Subclasses implement the per-platform integrate path."""
+
+    # 'latest': BEVs in the newest ego frame; 'world': in the fixed first
+    # ego frame.
+    bev_ref_frame = 'latest'
 
     def __init__(self, horizon_dist: float, icp_threshold: float,
                  semseg_model=None, semseg_filters=cfg.DEFAULT_SEMSEG_FILTERS,
@@ -46,6 +51,9 @@ class SemanticPointCloudAccumulator:
         bev_params = bev_params or {}
         if bev_params.get('type', 'sem') != 'sem':
             raise NotImplementedError('the port has the semantic BEV only')
+        if bev_params.get('mesh') is not None:
+            raise NotImplementedError(
+                "bev_params['mesh']: the port rasters on one device")
         self.sem_bev_generator = SemBEVGenerator(
             self.sem_idxs,
             bev_params.get('view_size', 80),
@@ -73,6 +81,13 @@ class SemanticPointCloudAccumulator:
         self.rgbs: List = []
         self.semsegs: List = []
 
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == 'cuda':
+            # Pinned staging copy, so the upload is asynchronous.
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _append_frame_meta(self, T_world_velo, rgb, semseg):
         """Host bookkeeping for a frame already inserted on the device
         (its id was reserved at dispatch)."""
@@ -86,6 +101,30 @@ class SemanticPointCloudAccumulator:
         self.poses.append(list(np.asarray(T_world_velo, np.float64)[:3, 3]))
         self.rgbs.append(rgb)
         self.semsegs.append(semseg)
+
+    def remove_observations(self):
+        """Append the newest segment and evict the frames beyond the
+        travelled-path memory horizon (host bookkeeping; the device masks
+        by window start). Returns (num_removed, path_length)."""
+        idx = 0
+        self.seg_dists.append(self.dist(np.array(self.poses[-1]),
+                                        np.array(self.poses[-2])))
+        path_length = float(np.sum(self.seg_dists))
+        if path_length > self.horizon_dist:
+            overshoot = path_length - self.horizon_dist
+            idx = int((self.get_incremental_path_dists() - overshoot > 0.)
+                      .argmax())
+            self._drop_oldest(idx)
+        return idx, path_length
+
+    def _drop_oldest(self, idx: int) -> None:
+        """Drop the ``idx`` oldest frames from the host window."""
+        self.poses = self.poses[idx:]
+        self.seg_dists = self.seg_dists[idx:]
+        self.T_world_velo = self.T_world_velo[idx:]
+        self.rgbs = self.rgbs[idx:]
+        self.semsegs = self.semsegs[idx:]
+        self.window_start += idx
 
     @staticmethod
     def comp_incr_path_dist(seg_dists) -> np.ndarray:
@@ -116,8 +155,10 @@ class SemanticPointCloudAccumulator:
         return float(np.sqrt(np.sum((pose_1 - pose_0)**2)))
 
     def _ref_transform(self) -> np.ndarray:
-        """World -> BEV-reference (newest ego) frame transform."""
-        return np.linalg.inv(self.T_world_velo[-1])
+        """World -> BEV-reference frame transform."""
+        if self.bev_ref_frame == 'latest':
+            return np.linalg.inv(self.T_world_velo[-1])
+        return np.eye(4)
 
     def _poses_ref(self, T_ref_world: np.ndarray) -> np.ndarray:
         poses = np.array(self.poses, np.float64).reshape(-1, 3)
@@ -177,3 +218,32 @@ class SemanticPointCloudAccumulator:
     def viz_bev(self, bev, file_path, rgbs: list = (), semsegs: list = ()):
         self.sem_bev_generator.viz_bev(bev, file_path, list(rgbs),
                                        list(semsegs))
+
+    def get_vector_space(self) -> np.ndarray:
+        """The in-window world-frame cloud as a numpy (N,10) array."""
+        pts = self.state.points.cpu().numpy().reshape(-1, cfg.PT_DIM)
+        valid = self.state.valid.cpu().numpy().reshape(-1)
+        fids = np.repeat(self.state.frame_ids.cpu().numpy(),
+                         self.state.points.shape[1])
+        return pts[valid & (fids >= self.window_start)]
+
+    def viz_sem_vec_space(self, file_path: str = 'sem_vec_space.ply',
+                          color: str = 'rgb') -> int:
+        """Write the in-window cloud as PLY, coloured by its RGB or, with
+        ``color='dyn'``, yellow where the point or its instance is dynamic
+        and blue elsewhere; the ego poses go to ``file_path``.poses.txt.
+        Returns the point count."""
+        from pc_accumulation_lib_tpu_torch.utils.ply import write_ply
+        pts = self.get_vector_space()
+        if color == 'dyn':
+            inst_dyn = self.state.inst_dyn.cpu().numpy()
+            inst = np.clip(pts[:, cfg.PT_INST].astype(int), 0,
+                           inst_dyn.shape[0] - 1)
+            dyn = np.maximum(pts[:, cfg.PT_DYN], inst_dyn[inst])
+            rgb = np.where(dyn[:, None] > 0.5, np.array([[253, 231, 36]]),
+                           np.array([[68, 2, 85]]))
+        else:
+            rgb = pts[:, cfg.PT_R:cfg.PT_B + 1]
+        write_ply(file_path, pts[:, :3], rgb)
+        np.savetxt(file_path + '.poses.txt', np.array(self.poses))
+        return pts.shape[0]

@@ -47,6 +47,15 @@ def insert_frame(state: BufferState, pts, valid, frame_id: int) -> None:
     state.frame_ids[slot].fill_(frame_id)   # a kernel, not a host copy
 
 
+def set_instance_dyn(state: BufferState, inst_idxs, dyn_flags) -> None:
+    """Raise the per-instance dynamic flags in place: inst_dyn[i] =
+    max(inst_dyn[i], flag) for each (i, flag), ids may repeat. The raster
+    folds the table into every stored point of the instance."""
+    state.inst_dyn.scatter_reduce_(0, inst_idxs.to(torch.int64),
+                                   dyn_flags.to(torch.float32), 'amax',
+                                   include_self=True)
+
+
 def compact_rows(painted, valid, cap_out):
     """Stable-move valid rows to the front and truncate to ``cap_out``.
 
@@ -99,6 +108,46 @@ def paint_frame_camera(pc, valid, rgb_img, semseg, P_velo_frame,
     zeros = torch.zeros_like(sem)[:, None]
     painted = torch.cat([world_xyz, pc[:, 3:4], gathered[:, :3],
                          sem[:, None], zeros, zeros], dim=1)
+    return painted, valid_out
+
+
+def paint_frame_multicam(pc, valid, cam_idx, imgs, semsegs, T_world_ego,
+                         inst_remap, filters):
+    """Paint pre-projected multi-camera points (NuScenes layout): the
+    nearest pixel's RGB and class from each point's camera, all cameras in
+    one gather; drop unprojected points and filtered classes; intensity
+    / 255; ego -> world.
+
+    Args:
+      pc: (N,7) [x, y, z ego frame, intensity, u, v, frame_inst_idx (-1 =
+        none)].
+      valid: (N,) padding mask.
+      cam_idx: (N,) int camera per point, -1 = no projection.
+      imgs: (C,H,W,3) float32 images; semsegs: (C,H,W) int class maps.
+      T_world_ego: (4,4) ego -> world.
+      inst_remap: (K,) int global instance id of frame_inst_idx + 1 (0 =
+        untracked; accum/tracking.InstanceTracker).
+
+    Returns (painted (N,10), valid_out (N,))."""
+    C, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    # Round half to even, as jnp.round; the clamp in float before the cast
+    # gives the same index as XLA's saturating cast followed by a clip.
+    u = torch.round(pc[:, 4]).clamp(0, W - 1).to(torch.int64)
+    v = torch.round(pc[:, 5]).clamp(0, H - 1).to(torch.int64)
+    ci = cam_idx.clamp(0, C - 1).to(torch.int64)
+    rgb = imgs[ci, v, u]
+    sem = semsegs[ci, v, u].to(torch.float32)
+    valid_out = valid & (cam_idx >= 0) & geo.semseg_filter_mask(sem, filters)
+    world_xyz = geo.homo_transform(T_world_ego, pc[:, :3])
+    inten = pc[:, 3:4] / 255.0
+    # The float -> int cast truncates toward zero on both sides; clamping
+    # to [-1, K] first keeps every in-range index and the cast defined.
+    K = inst_remap.shape[0]
+    fi = (pc[:, 6].clamp(-1, K).to(torch.int64) + 1).clamp(0, K - 1)
+    inst = inst_remap[fi].to(torch.float32)
+    zeros = torch.zeros_like(sem)[:, None]
+    painted = torch.cat([world_xyz, inten, rgb, sem[:, None], inst[:, None],
+                         zeros], dim=1)
     return painted, valid_out
 
 

@@ -166,13 +166,6 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
             out[:n] = pc
         return out, np.arange(n_cap) < n
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == 'cuda':
-            # Pinned staging copy, so the upload is asynchronous.
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def upload_obs(self, obs) -> DeviceObs:
         """Start the host->device upload of one (rgb, pc, sem_gt)
         observation; integrate/step accept the result in its place."""
@@ -303,12 +296,7 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                     np.array(self.poses[-1]), np.array(self.poses[-2])))
             idx = int(vec[34]) - self.window_start
             if idx > 0:
-                self.poses = self.poses[idx:]
-                self.seg_dists = self.seg_dists[idx:]
-                self.T_world_velo = self.T_world_velo[idx:]
-                self.rgbs = self.rgbs[idx:]
-                self.semsegs = self.semsegs[idx:]
-                self.window_start += idx
+                self._drop_oldest(idx)
             return idx
 
         return fetch

@@ -1,8 +1,10 @@
-"""Synthetic KITTI-360-format observation stream (host numpy).
+"""Synthetic KITTI-360- and NuScenes-format observation streams (host
+numpy).
 
 Counterpart of dataloaders/synthetic.py (make_calib, _world_points,
-SyntheticKitti360Stream). The same seed gives byte-identical points,
-labels and pixels; the camera image is a numpy uint8 array here.
+SyntheticKitti360Stream, SyntheticNuScenesStream). The same seed gives
+byte-identical points, labels and pixels; camera images are numpy uint8
+(H,W,3) arrays here.
 
 World model: straight road along +x with high-intensity lane markings,
 sidewalks, building walls, poles, parked cars and vegetation; the ego
@@ -169,6 +171,112 @@ class SyntheticKitti360Stream:
         col = np.linspace(0, 255, w).astype(np.int64)[None, :]
         img[..., 2] = ((col + idx) % 256).astype(np.uint8)
         return img
+
+    def __len__(self):
+        return self.n_frames
+
+    def __iter__(self):
+        for i in range(self.n_frames):
+            yield [self.frame(i)]
+
+
+class SyntheticNuScenesStream:
+    """In-memory NuScenes-format observation dicts (the layout of
+    dataloaders/nuscenes.NuScenesDataloader.read_obs) on the same world,
+    with a parked car (a static tracked instance) and a car moving along
+    the road at 1.5 m per frame (flagged dynamic by the tracker)."""
+
+    def __init__(self, n_frames: int = 12, step: float = 2.0,
+                 lidar_range: float = 25.0, seed: int = 0,
+                 n_cams: int = 6, img_hw=(64, 128)):
+        self.n_frames = n_frames
+        self.step = step
+        self.lidar_range = lidar_range
+        self.n_cams = n_cams
+        self.img_hw = img_hw
+        rng = np.random.default_rng(seed)
+        length = n_frames * step + 2 * lidar_range
+        self.world, self.world_int, self.world_sem = _world_points(
+            rng, length=length)
+        # Moving car: a template cluster translating +x at 1.5 m / frame.
+        n_car = 120
+        self.mov_template = np.stack([
+            rng.uniform(-2, 2, n_car), rng.uniform(-1, 1, n_car),
+            rng.uniform(0.2, 1.5, n_car)], 1)
+        self.mov_start = np.array([lidar_range + 6.0, 2.5, 0.0])
+        self.mov_vel = np.array([1.5, 0.0, 0.0])
+        # Parked car: a static tracked instance.
+        self.parked_center = np.array([lidar_range + 14.0, -3.0, 0.6])
+        self.parked_pts = self.parked_center + np.stack([
+            rng.uniform(-2, 2, n_car), rng.uniform(-0.8, 0.8, n_car),
+            rng.uniform(-0.4, 0.9, n_car)], 1)
+
+    def ego_pose(self, idx: int) -> np.ndarray:
+        return np.array([self.lidar_range + idx * self.step, 0.0, EGO_Z])
+
+    def _project_fake(self, pts_ego):
+        """Deterministic fake rig projection: the camera is the azimuth
+        sector; (u, v) are linear in azimuth and elevation, strictly inside
+        the image."""
+        H, W = self.img_hw
+        az = np.arctan2(pts_ego[:, 1], pts_ego[:, 0])  # [-pi, pi)
+        frac = (az + np.pi) / (2 * np.pi)              # [0, 1)
+        cam = np.minimum((frac * self.n_cams).astype(int), self.n_cams - 1)
+        in_cam = frac * self.n_cams - cam              # [0, 1)
+        u = 2.0 + in_cam * (W - 4)
+        r = np.linalg.norm(pts_ego[:, :2], axis=1)
+        el = np.clip(pts_ego[:, 2] / np.maximum(r, 1e-3), -1, 1)
+        v = 2.0 + (el + 1) / 2 * (H - 4)
+        return u, v, cam
+
+    def render_images(self, idx: int) -> list:
+        """One uint8 (H,W,3) gradient image per camera."""
+        H, W = self.img_hw
+        imgs = []
+        for c in range(self.n_cams):
+            img = np.zeros((H, W, 3), np.uint8)
+            img[..., 0] = (40 * c + idx) % 256
+            img[..., 1] = np.linspace(0, 255, H, dtype=np.uint8)[:, None]
+            img[..., 2] = np.linspace(0, 255, W, dtype=np.uint8)[None, :]
+            imgs.append(img)
+        return imgs
+
+    def frame(self, idx: int) -> dict:
+        pose = self.ego_pose(idx)
+        mov_center = self.mov_start + idx * self.mov_vel
+        mov_pts = self.mov_template + mov_center
+        pts_w = np.concatenate([self.world, self.parked_pts, mov_pts])
+        inten = np.concatenate([
+            self.world_int,
+            np.full(self.parked_pts.shape[0], 0.6, np.float32),
+            np.full(mov_pts.shape[0], 0.7, np.float32)])
+        # Frame-local instance column: -1 none, 0 parked, 1 moving (the
+        # order of inst_tokens below).
+        inst = np.concatenate([
+            -np.ones(self.world.shape[0]),
+            np.zeros(self.parked_pts.shape[0]),
+            np.ones(mov_pts.shape[0])])
+        rel = pts_w - pose[None, :]
+        m = np.linalg.norm(rel[:, :2], axis=1) < self.lidar_range
+        rel, inten, inst = rel[m], inten[m], inst[m]
+        u, v, cam = self._project_fake(rel)
+        pc = np.concatenate([rel, (inten * 255)[:, None], u[:, None],
+                             v[:, None], inst[:, None]], axis=1)
+        T_ego_global = np.eye(4)
+        T_ego_global[:3, 3] = pose
+        return {
+            'images': self.render_images(idx),
+            'pc': pc.astype(np.float64),
+            'pc_cam_idx': cam.astype(int),
+            'ego_at_lidar_ts': T_ego_global,
+            'inst_tokens': ['car_parked', 'car_moving'],
+            'inst_cls': [0, 0],
+            'inst_center': [self.parked_center.copy(), mov_center.copy()],
+            'ego_global_x': pose[0],
+            'ego_global_y': pose[1],
+            'meta': {'sample_token': f'synth{idx}', 'scene_token': 'synth',
+                     'cam_channels': [f'CAM{i}' for i in range(self.n_cams)]},
+        }
 
     def __len__(self):
         return self.n_frames
