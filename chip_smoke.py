@@ -18,7 +18,12 @@ cameras, tracking, the dynamic table) and holds both kernels against
 their plain versions on one of its rasters' rows, then the NuScenes
 runner's two phases at run()'s defaults with oracle poses and its ICP
 branch. It checks a GPU run against a CPU run at test size, for step(),
-the KITTI-360 runner and the oracle accumulator.
+the KITTI-360 runner and the oracle accumulator. It writes the
+full-width semseg model as an .onnx and a weight file and loads each
+back, trains it at 376x1408 through the training runner (step time,
+FLOP/s, peak memory, a checkpoint restored bit-equal), drives the two
+point-cloud export runners, and checks train steps on the GPU against
+the CPU at test size.
 
     python3 chip_smoke.py
 
@@ -106,6 +111,29 @@ ORACLE_BEV = dict(type='sem', view_size=80, pixel_size=256, int_scaler=1.,
 # steps must come out at the stream's 2 m within 0.4 m.
 NUSC_RUNNER_FRAMES, NUSC_ICP_FRAMES = 100, 12
 STEP_ATOL = 0.4
+
+# Semseg training at full width (runners/train_semseg.run): the
+# full-depth ResNet-50 dilated FCN on a shard of 16 rendered 376x1408
+# frames, run()'s batch of 8, 12 steps, a checkpoint every 6. Then 5 steps
+# on one fixed batch must lower the loss (as the JAX package's model test
+# holds its trainer).
+TRAIN_FRAMES, TRAIN_STEPS, TRAIN_BATCH, TRAIN_CKPT_EVERY = 16, 12, 8, 6
+FIXED_BATCH_STEPS = 5
+BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16, NVIDIA's data sheet
+# The GPU-vs-CPU train check at test size, with the CPU parity test's
+# tolerances against the JAX trainer: step-1 loss rtol 1e-5, gradients
+# rtol 1e-4 with atol GRAD_FLOOR * max|g| per tensor, batch-norm running
+# statistics rtol 1e-5 with atol 1e-5 * max|stat|; three steps' losses
+# rtol 1e-4, parameters within 2 * lr * steps (Adam moves a weight by about
+# lr per step whatever its gradient's size). phase_gpu_vs_cpu_train says
+# where float32 is held to a float64 run instead.
+SMALL_TRAIN = dict(stage_sizes=(1, 1, 1, 1), hw=(64, 128), batch=2,
+                   steps=3, lr=1e-3)
+GRAD_FLOOR = 5e-5
+# The point-cloud export runners (runners/*_pc_accum.py) at their run()
+# defaults: the KITTI-360 one on main's 20 frames of the bench stream, the
+# NuScenes one with oracle poses on the oracle stream's 20 frames.
+PC_ACCUM_FRAMES = 20
 
 # Kernel-vs-plain tolerance: everything exact except the float sums.
 INTENSITY_RTOL = 1e-5
@@ -1480,6 +1508,415 @@ def _oracle_gpu_vs_cpu(dev):
                 oracle_max_abs=err, oracle_gpu_kernel_launches=launches)
 
 
+def phase_semseg_weights(dev, tmp):
+    """The seed-0 full-width model written as an .onnx initializers file
+    (names prefixed, so the suffix rule loads it) and as a weight file,
+    each loaded with load_semseg_model on the card: logits and class maps
+    on one 376x1408 frame equal to the source model's."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.models import onnx_pb
+    from pc_accumulation_lib_tpu_torch.models.checkpoint import (
+        save_semseg_weights)
+    from pc_accumulation_lib_tpu_torch.models.semseg import (
+        SemSegTorch, load_semseg_model)
+    t0 = time.perf_counter()
+    src = SemSegTorch(dev, seed=0)
+    paths = {'onnx': os.path.join(tmp, 'semseg.onnx'),
+             'pt': os.path.join(tmp, 'semseg.pt')}
+    ts = time.perf_counter()
+    onnx_pb.write_initializers(paths['onnx'], {
+        'model.' + k: v.cpu().numpy()
+        for k, v in src.model.state_dict().items()
+        if not k.endswith('num_batches_tracked')})
+    write_s = {'onnx': time.perf_counter() - ts}
+    ts = time.perf_counter()
+    save_semseg_weights(src, paths['pt'])
+    write_s['pt'] = time.perf_counter() - ts
+    img = torch.from_numpy(SyntheticKitti360Stream(
+        n_frames=1, **STREAM).render_image(0))[None].to(dev)
+    res = dict(frame_hw=list(STREAM['img_hw']),
+               parameters=sum(p.numel() for p in src.model.parameters()))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            want = src.model(img.to(torch.float32))
+        for kind, path in paths.items():
+            ts = time.perf_counter()
+            model = load_semseg_model(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - ts
+            with torch.no_grad():
+                got = model.model(img.to(torch.float32))
+            err = float((got - want).abs().max())
+            check(err == 0.0, (kind, err))
+            same = bool(torch.equal(model.predict(img), src.predict(img)))
+            check(same, f'{kind}: class maps differ')
+            res[kind] = dict(file_bytes=os.path.getsize(path),
+                             write_s=write_s[kind], load_s=load_s,
+                             logits_max_abs=err, class_maps_equal=same)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit('semseg_weights', t0, **res)
+
+
+def _forward_flops(model, hw):
+    """Forward FLOPs of one image: 2 per multiply-add of every conv, from
+    the layer shapes one forward at ``hw`` gives."""
+    flops = []
+
+    def count(mod, _, out):
+        k = mod.weight[0].numel()   # in_ch / groups * kh * kw
+        flops.append(2 * k * out[0].numel()
+                     + (out[0].numel() if mod.bias is not None else 0))
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    dev = next(model.parameters()).device
+    training = model.training
+    model.eval()                # keeps the running statistics as they are
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, *hw, 3), device=dev))
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return sum(flops), len(flops)
+
+
+def _train_shard(path, hw):
+    """TRAIN_FRAMES rendered frames and labels in 0-18 (row bands shifted
+    per frame), 5% of pixels 255 and frame 3 wholly 255."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    stream = SyntheticKitti360Stream(n_frames=TRAIN_FRAMES, **STREAM)
+    rng = np.random.default_rng(0)
+    h, w = hw
+    rows = np.arange(h)[:, None] * 19 // h
+    labels = np.stack([np.broadcast_to((rows + i) % 19, (h, w))
+                       for i in range(TRAIN_FRAMES)]).astype(np.uint8)
+    labels[rng.random(labels.shape) < 0.05] = 255
+    labels[3] = 255
+    np.savez(path, images=np.stack([stream.render_image(i)
+                                    for i in range(TRAIN_FRAMES)]),
+             labels=labels)
+    return labels
+
+
+def _equal_train_states(a, b):
+    """Parameters, buffers and Adam's moments and steps bit-equal."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    check(set(sa) == set(sb), 'state keys differ')
+    for k in sa:
+        check(torch.equal(sa[k], sb[k]), f'restored {k} differs')
+    oa = a.optimizer.state_dict()['state']
+    ob = b.optimizer.state_dict()['state']
+    check(set(oa) == set(ob) and oa, 'optimizer state differs')
+    for i in oa:
+        for k in ('exp_avg', 'exp_avg_sq', 'step'):
+            check(torch.equal(oa[i][k].cpu(), ob[i][k].cpu()),
+                  f'restored optimizer {i}.{k} differs')
+    return len(sa), len(oa)
+
+
+def phase_train_path(dev, tmp):
+    """runners/train_semseg.run at full width: the full-depth ResNet-50
+    dilated FCN at 376x1408, batch 8, 12 steps, checkpoints at 6 and 12.
+    Each step is timed from one step's start to the next one's (the
+    batch's load and host-to-device copy, the step, the loss read) and
+    alone (the step up to its synchronize). Then 5 steps on a fixed batch
+    lower the loss, and the last checkpoint restores bit-equal."""
+    from pc_accumulation_lib_tpu_torch.models import checkpoint as ckpt
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    from pc_accumulation_lib_tpu_torch.runners import train_semseg
+    t0 = time.perf_counter()
+    hw = STREAM['img_hw']
+    shard = os.path.join(tmp, 'shard0.npz')
+    labels = _train_shard(shard, hw)
+    ckpt_dir = os.path.join(tmp, 'ckpt')
+    make_setup = train_mod.make_train_setup
+    starts, step_s = [], []
+
+    def timed_setup(*args, **kwargs):
+        state, train_step = make_setup(*args, **kwargs)
+
+        def timed_step(state, images, labels):
+            ts = time.perf_counter()
+            starts.append(ts)
+            out = train_step(state, images, labels)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            return out
+        return state, timed_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.make_train_setup = timed_setup
+    ts = time.perf_counter()
+    try:
+        state, losses = train_semseg.run(
+            os.path.join(tmp, 'shard*.npz'), steps=TRAIN_STEPS,
+            batch_size=TRAIN_BATCH, ckpt_dir=ckpt_dir,
+            ckpt_every=TRAIN_CKPT_EVERY, device=dev)
+    finally:
+        train_mod.make_train_setup = make_setup
+    run_s = time.perf_counter() - ts
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+          (len(losses), state.step))
+    check(all(np.isfinite(losses)), losses)
+    check(sorted(os.listdir(ckpt_dir), key=int)
+          == [str(s) for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                                    TRAIN_CKPT_EVERY)],
+          os.listdir(ckpt_dir))
+    iter_s = [b - a for a, b in zip(starts, starts[1:])]
+    median_iter = statistics.median(iter_s[1:])
+    median_step = statistics.median(step_s[1:])
+    flops, convs = _forward_flops(state.model, hw)
+    train_flops = 3 * flops * TRAIN_BATCH
+    # The last checkpoint into a fresh setup.
+    fresh, _ = make_setup(img_hw=hw, device=dev)
+    ts = time.perf_counter()
+    restored = ckpt.restore_train_state(ckpt_dir, fresh)
+    restore_s = time.perf_counter() - ts
+    check(restored.step == TRAIN_STEPS, restored.step)
+    n_tensors, n_moments = _equal_train_states(restored, state)
+    del state, fresh, restored
+    # 5 steps on one fixed batch: the shard's first 8 frames.
+    with np.load(shard) as d:
+        images = torch.from_numpy(d['images'][:TRAIN_BATCH]).to(dev)
+    fixed_labels = torch.from_numpy(labels[:TRAIN_BATCH]).to(dev)
+    state, train_step = make_setup(img_hw=hw, device=dev)
+    fixed = []
+    for _ in range(FIXED_BATCH_STEPS):
+        state, loss = train_step(state, images.to(torch.float32),
+                                 fixed_labels)
+        fixed.append(float(loss))
+    check(all(np.isfinite(fixed)) and fixed[-1] < fixed[0], fixed)
+    del state
+    emit('train_path', t0, frames=TRAIN_FRAMES, hw=list(hw),
+         batch=TRAIN_BATCH, steps=TRAIN_STEPS, losses=losses,
+         step_s=step_s, iteration_s=iter_s,
+         median_step_s_2_to_12=median_step,
+         median_iteration_s_2_to_11=median_iter,
+         images_per_s=TRAIN_BATCH / median_iter,
+         images_per_s_step_alone=TRAIN_BATCH / median_step,
+         forward_flops_per_image=flops, conv_layers=convs,
+         train_flops_per_step=train_flops,
+         train_flop_per_s=train_flops / median_iter,
+         train_flop_per_s_step_alone=train_flops / median_step,
+         bf16_peak_share=train_flops / median_iter / BF16_OPS_PER_S,
+         max_memory_allocated_bytes=peak, run_s=run_s,
+         restore_s=restore_s, restored_tensors=n_tensors,
+         restored_moments=n_moments, fixed_batch_losses=fixed)
+
+
+def _small_train(d, batches, dtype):
+    """SMALL_TRAIN on device ``d``, every conv, batch norm, parameter and
+    Adam moment in ``dtype``: (initial state, step-1 gradients, running
+    statistics after step 1, losses, final parameters), on the host in
+    float64."""
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    from pc_accumulation_lib_tpu_torch.models.resnet_semseg import _Conv
+    cfg = SMALL_TRAIN
+    state, train_step = train_mod.make_train_setup(
+        lr=cfg['lr'], img_hw=cfg['hw'], seed=0,
+        stage_sizes=cfg['stage_sizes'], compute_dtype=dtype, device=d)
+    state.model.to(dtype)
+    for m in state.model.modules():
+        if isinstance(m, _Conv):     # the classifier's float32 included
+            m.compute_dtype = dtype
+    # The optimizer again, on the parameters in their new dtype.
+    state = state._replace(optimizer=type(state.optimizer)(
+        state.model.parameters(), **state.optimizer.defaults))
+
+    def host(tensors):
+        # A copy: on the CPU in float64 .double().numpy() shares memory
+        # with the live tensor, which the next steps change.
+        return {k: v.detach().cpu().double().numpy().copy()
+                for k, v in tensors}
+
+    init = host(state.model.state_dict().items())
+    losses, grads, stats = [], None, None
+    for images, labels in batches:
+        state, loss = train_step(state, torch.from_numpy(images).to(d),
+                                 torch.from_numpy(labels).to(d))
+        losses.append(float(loss))
+        if grads is None:
+            grads = host((k, p.grad) for k, p in
+                         state.model.named_parameters())
+            stats = host((k, v) for k, v in state.model.state_dict().items()
+                         if 'running' in k)
+    return (init, grads, stats, np.array(losses),
+            host(state.model.named_parameters()))
+
+
+def _rel_err(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol |want|): <= 1 passes."""
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def _held(gpu, cpu):
+    """The card's run against the CPU's under the CPU tests' tolerances
+    (SMALL_TRAIN's comment): each error <= 1 passes."""
+    (gi, gg, gs, gl, gp), (ci, cg, cs, cl, cp) = gpu, cpu
+    check(all(np.array_equal(gi[k], ci[k]) for k in ci),
+          'initial weights differ')
+    check(np.isfinite(gl).all() and np.isfinite(cl).all(), (gl, cl))
+    return dict(
+        step1_loss=_rel_err(gl[0], cl[0], 1e-5, 0.0),
+        losses=_rel_err(gl, cl, 1e-4, 0.0),
+        gradients=max(_rel_err(gg[k], g, 1e-4, GRAD_FLOOR * np.abs(g).max())
+                      for k, g in cg.items()),
+        running_stats=max(_rel_err(gs[k], v, 1e-5, 1e-5 * np.abs(v).max())
+                          for k, v in cs.items()),
+        parameters=max(float(np.abs(gp[k] - v).max()) for k, v in cp.items())
+        / (2 * SMALL_TRAIN['lr'] * SMALL_TRAIN['steps']))
+
+
+def _grad_distance(run, ref):
+    """Per step-1 gradient tensor, max |g - g_ref| / max |g_ref|."""
+    return {k: float(np.abs(run[1][k] - g).max() / np.abs(g).max())
+            for k, g in ref[1].items()}
+
+
+def phase_gpu_vs_cpu_train(dev):
+    """Three train steps of the reduced-depth model at 64x128, batch 2,
+    TF32 off, on the card and on the CPU from the same weights and
+    batches. In float64 the two are held to each other under the CPU
+    tests' tolerances: the same function computed twice. In float32 (the
+    trainer's dtype on the CPU) the step-1 loss, the batch-norm statistics
+    and the parameters are held to the CPU's the same way, and the
+    gradients to the CPU's float64 run: the card's largest distance from
+    it, over tensors, no more than twice the CPU's plus GRAD_FLOOR. At
+    this size float32 itself is the limit: a batch norm whose channel
+    mean dwarfs its spread amplifies the rounding of its input, and the
+    CPU's float32 layer-4 gradients lie up to ~8% of their tensor's
+    largest from its float64 ones. Adam's first step, about +-lr per
+    weight whatever its gradient's size, then takes a different sign on
+    each device for gradients at that floor, so the float32 losses of
+    steps 2 and 3 are reported with their distance from the float64 run,
+    not held: the float64 pair holds the losses."""
+    t0 = time.perf_counter()
+    cfg = SMALL_TRAIN
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(cfg['steps']):
+        images = rng.integers(0, 256, (cfg['batch'], *cfg['hw'], 3))
+        labels = rng.integers(0, 19, (cfg['batch'], *cfg['hw']))
+        labels[0, :5] = 255
+        batches.append((images.astype(np.float32), labels.astype(np.int64)))
+    cpu_dev = torch.device('cpu')
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {dt: (_small_train(dev, batches, dt),
+                     _small_train(cpu_dev, batches, dt))
+                for dt in (torch.float64, torch.float32)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (g64, c64), (g32, c32) = runs[torch.float64], runs[torch.float32]
+    held64 = _held(g64, c64)
+    held32 = _held(g32, c32)
+    gpu_grads, cpu_grads = _grad_distance(g32, c64), _grad_distance(c32, c64)
+    grads32 = (max(gpu_grads.values())
+               / (2 * max(cpu_grads.values()) + GRAD_FLOOR))
+    worst = sorted(cpu_grads, key=lambda k: max(gpu_grads[k],
+                                                cpu_grads[k]))[-3:]
+    res = dict(float64=held64,
+               float32=dict(step1_loss=held32['step1_loss'],
+                            running_stats=held32['running_stats'],
+                            parameters=held32['parameters'],
+                            gradients_vs_float64=grads32),
+               losses=dict(gpu64=g64[3].tolist(), cpu64=c64[3].tolist(),
+                           gpu32=g32[3].tolist(), cpu32=c32[3].tolist()),
+               float32_loss_rel_distance_to_float64=dict(
+                   gpu=(np.abs(g32[3] - c64[3]) / c64[3]).tolist(),
+                   cpu=(np.abs(c32[3] - c64[3]) / c64[3]).tolist()),
+               float32_grad_distance_to_float64={
+                   k: dict(gpu=gpu_grads[k], cpu=cpu_grads[k])
+                   for k in worst},
+               grad_floor=GRAD_FLOOR,
+               note='errors are ratios to their limit: <= 1 passes')
+    emit('gpu_vs_cpu_train', t0, **res)
+    for name, err in [*(('float64 ' + k, v) for k, v in held64.items()),
+                      *(('float32 ' + k, v) for k, v in
+                        res['float32'].items())]:
+        check(err <= 1.0, (name, err))
+
+
+def phase_pc_accum(dev, tmp):
+    """Each point-cloud export runner's accumulator as its run() builds it
+    (run()'s defaults, the full-depth model), fed the synthetic stream;
+    export_vector_space writes the in-window cloud, read back: the point
+    count equals the in-window valid rows, the points and colours equal
+    the buffer's. These paths launch neither stats kernel."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream, SyntheticNuScenesStream, make_calib)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_pc_accum
+    from pc_accumulation_lib_tpu_torch.runners import nuscenes_pc_accum
+    from pc_accumulation_lib_tpu_torch.utils.ply import read_ply
+    semseg = SemSegTorch(dev, seed=0)
+    _, H_velo_cam, P_cam_frame = make_calib(STREAM['img_hw'])
+    calib = dict(h_velo_cam=H_velo_cam, p_cam_frame=P_cam_frame,
+                 p_velo_frame=P_cam_frame @ H_velo_cam)
+    runners = (
+        ('kitti360_pc_accum', lambda: kitti360_pc_accum.build_accumulator(
+            calib, semseg, device=dev),
+         lambda: SyntheticKitti360Stream(n_frames=PC_ACCUM_FRAMES, **STREAM)),
+        ('nuscenes_pc_accum', lambda: nuscenes_pc_accum.build_accumulator(
+            semseg, 'synth', device=dev),
+         lambda: SyntheticNuScenesStream(n_frames=PC_ACCUM_FRAMES,
+                                         **ORACLE_STREAM)))
+    for phase, build, make_stream in runners:
+        t0 = time.perf_counter()
+        accum, stream = build(), make_stream()
+        out = os.path.join(tmp, f'{phase}.ply')
+        ss.segmented_stats_words.launches = 0
+        ss.segmented_stats.launches = 0
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            for observations in stream:
+                accum.integrate(observations)
+        torch.cuda.synchronize()
+        integrate_s = time.perf_counter() - ts
+        ts = time.perf_counter()
+        n = kitti360_pc_accum.export_vector_space(accum, out)
+        export_s = time.perf_counter() - ts
+        launches = (ss.segmented_stats_words.launches,
+                    ss.segmented_stats.launches)
+        st = accum.state
+        in_window = int((st.valid & (st.frame_ids[:, None]
+                                     >= accum.window_start)).sum())
+        xyz, rgb = read_ply(out)
+        pts = accum.get_vector_space()
+        check(n == in_window == xyz.shape[0] and n > 0, (n, in_window,
+                                                         xyz.shape))
+        check(np.array_equal(xyz, pts[:, :3].astype(np.float32)),
+              'PLY points differ from the buffer')
+        rgb_buf = pts[:, cfg.PT_R:cfg.PT_B + 1]
+        check(np.array_equal(rgb, np.clip(rgb_buf, 0, 255).astype(np.uint8)),
+              'PLY colours differ')
+        poses = np.loadtxt(out + '.poses.txt')
+        check(poses.shape == (len(accum.poses), 3), poses.shape)
+        check(launches == (0, 0), launches)
+        emit(phase, t0, frames=PC_ACCUM_FRAMES, points=n,
+             in_window_valid_rows=in_window, ply_bytes=os.path.getsize(out),
+             integrate_s=integrate_s,
+             integrate_ms_per_frame=integrate_s * 1e3 / PC_ACCUM_FRAMES,
+             export_s=export_s, window_frames=len(accum.poses),
+             rows=st.valid.numel(), kernel_launches=list(launches))
+        del accum
+
+
 def _kernel_entry(name, replaces, launches, max_abs_err, on_runner,
                   launches_by_path):
     """One kernel's entry of the kernels line, at a runner raster's rows:
@@ -1527,6 +1964,11 @@ def main():
     del oracle_stats_in
     nusc_runner = phase_nuscenes_runner_path(dev)
     phase_gpu_vs_cpu(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_semseg_weights(dev, tmp)
+        phase_train_path(dev, tmp)
+        phase_pc_accum(dev, tmp)
+    phase_gpu_vs_cpu_train(dev)
     # Each kernel's timing at four shapes: made-up bench raster rows, a
     # step() raster's rows, a KITTI-360 runner raster's rows, an oracle
     # raster's rows.

@@ -11,7 +11,8 @@ what pc_accumulation_lib_tpu.models.onnx_port.export_named_tensors emits.
 
 ``compute_dtype`` sets the convolution precision (bfloat16 on the GPU);
 batch norms, ReLUs, residual adds and the classifier run in float32, as
-the JAX model does.
+the JAX model does. Weights stay float32, so their gradients are float32
+too (models/train.py).
 """
 from __future__ import annotations
 
@@ -41,10 +42,27 @@ class _Conv(nn.Conv2d):
 
 
 class _BN(nn.BatchNorm2d):
-    """Eval-mode batch norm in float32."""
+    """Batch norm in its parameters' dtype (float32), with flax's
+    train-mode statistics.
+
+    Eval mode normalizes with the running statistics. Train mode
+    normalizes with the batch's mean and biased variance and updates the
+    running ones as flax's BatchNorm(momentum=0.9) does: r = 0.9 r + 0.1
+    batch, with the biased variance also for ``running_var`` (torch's own
+    train mode stores the unbiased n/(n-1) one). Torch's momentum 0.1 is
+    flax's 0.9."""
 
     def forward(self, x):
-        return super().forward(x.to(torch.float32))
+        x = x.to(self.weight.dtype)
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
 
 
 class Bottleneck(nn.Module):

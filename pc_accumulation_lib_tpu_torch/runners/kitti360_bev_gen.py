@@ -209,12 +209,10 @@ def main(argv=None):
 
     semseg_model = None
     if not args.use_gt_sem:
-        if args.semseg_model_path:
-            raise NotImplementedError(
-                'loading semseg weights from a file is not ported; omit the '
-                'path for a randomly initialized model or pass --use_gt_sem')
-        from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
-        semseg_model = SemSegTorch(args.device, seed=0)
+        from pc_accumulation_lib_tpu_torch.models.semseg import (
+            load_semseg_model)
+        semseg_model = load_semseg_model(args.semseg_model_path,
+                                         device=args.device)
 
     bev_params = {
         'type': args.bev_type, 'view_size': args.bev_view_size,

@@ -8,7 +8,7 @@ manifest and strided shards.
 
 Library use: run(...) with a devkit object or a test double as ``nusc``;
 CLI: python -m pc_accumulation_lib_tpu_torch.runners.nuscenes_bev_gen
-<dataroot> [--use_oracle_pose] [--device cuda].
+<dataroot> [<semseg_model>] [--use_oracle_pose] [--device cuda].
 """
 from __future__ import annotations
 
@@ -272,12 +272,9 @@ def main(argv=None):
                         choices=('float32',))
     args = parser.parse_args(argv)
 
-    if args.semseg_model_path:
-        raise NotImplementedError(
-            'loading semseg weights from a file is not ported; omit the path '
-            'for a randomly initialized model')
-    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
-    semseg_model = SemSegTorch(args.device, seed=0)
+    from pc_accumulation_lib_tpu_torch.models.semseg import load_semseg_model
+    semseg_model = load_semseg_model(args.semseg_model_path,
+                                     device=args.device)
     bev_params = {
         'type': args.bev_type, 'view_size': args.bev_view_size,
         'pixel_size': args.bev_pixel_size,

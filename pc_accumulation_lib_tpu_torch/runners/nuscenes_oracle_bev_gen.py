@@ -2,7 +2,8 @@
 --use_oracle_pose forced.
 
 CLI: python -m pc_accumulation_lib_tpu_torch.runners.nuscenes_oracle_bev_gen
-<dataroot> [--device cuda] (the other flags as nuscenes_bev_gen's).
+<dataroot> [<semseg_model>] [--device cuda] (the other flags as
+nuscenes_bev_gen's).
 """
 from __future__ import annotations
 

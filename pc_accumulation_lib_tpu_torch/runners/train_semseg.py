@@ -1,0 +1,101 @@
+"""Semantic-segmentation training entry point, on one device.
+
+Counterpart of runners/train_semseg.py: trains the ResNet-50 FCN
+(models/train.py) on (image, label) pairs, with a checkpoint every
+``ckpt_every`` steps and at the end (models/checkpoint.py). Training over
+a data/tensor-parallel mesh waits for the mesh slice.
+
+Data format: .npz shards with arrays ``images`` (N,H,W,3) uint8 and
+``labels`` (N,H,W) int (255 = ignore), e.g. produced by projecting
+KITTI-360 3D semantic GT into the camera.
+
+CLI: python -m pc_accumulation_lib_tpu_torch.runners.train_semseg
+'<data_glob>' [--steps N] [--device cuda].
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+
+import numpy as np
+import torch
+
+
+def iterate_batches(shard_paths, batch_size, seed=0):
+    """Endless (images, labels) batches: shards in a shuffled order,
+    images of each shard in a shuffled order, the last partial batch of a
+    shard dropped; the same numpy RNG sequence as the JAX package's."""
+    rng = np.random.default_rng(seed)
+    order = list(shard_paths)
+    while True:
+        rng.shuffle(order)
+        for path in order:
+            with np.load(path) as d:
+                images, labels = d['images'], d['labels']
+            idx = rng.permutation(images.shape[0])
+            for i in range(0, len(idx) - batch_size + 1, batch_size):
+                sel = idx[i:i + batch_size]
+                yield images[sel], labels[sel]
+
+
+def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
+        lr: float = 1e-3, ckpt_dir: str = 'semseg_ckpt',
+        ckpt_every: int = 500, dp: int = None, seed: int = 0,
+        stage_sizes=None, log_every: int = 50, *, device='cuda'):
+    """Train for ``steps`` steps on ``device`` (the card unless the
+    caller passes 'cpu'). ``dp`` is the data-parallel width: None or 1
+    here. Returns (state, losses)."""
+    from pc_accumulation_lib_tpu_torch.models import checkpoint as ckpt
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+
+    if dp not in (None, 1):
+        raise NotImplementedError(
+            f'dp={dp}: data-parallel training waits for the mesh slice '
+            '(ROADMAP "Still to port" item 9); this runner trains on one '
+            'device')
+    shards = sorted(glob.glob(data_glob))
+    if not shards:
+        raise FileNotFoundError(f'no training shards match {data_glob!r}')
+    with np.load(shards[0]) as d:
+        hw = d['images'].shape[1:3]
+    state, train_step = train_mod.make_train_setup(
+        lr=lr, img_hw=tuple(hw), seed=seed, stage_sizes=stage_sizes,
+        device=device)
+
+    it = iterate_batches(shards, batch_size, seed)
+    losses = []
+    for step_i in range(1, steps + 1):
+        images, labels = next(it)
+        # uint8 and the label dtype over the link; float on the device.
+        images = torch.from_numpy(images).to(device).to(torch.float32)
+        labels = torch.from_numpy(labels).to(device)
+        state, loss = train_step(state, images, labels)
+        losses.append(float(loss))
+        if step_i % log_every == 0:
+            print(f'step {step_i} | loss {np.mean(losses[-log_every:]):.4f}')
+        if ckpt_every and step_i % ckpt_every == 0:
+            ckpt.save_train_state(ckpt_dir, step_i, state)
+    if ckpt_every and steps % ckpt_every:
+        ckpt.save_train_state(ckpt_dir, steps, state)
+    return state, losses
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('data_glob', type=str,
+                        help="e.g. 'semseg_data/*.npz'")
+    parser.add_argument('--steps', type=int, default=1000)
+    parser.add_argument('--batch_size', type=int, default=8)
+    parser.add_argument('--lr', type=float, default=1e-3)
+    parser.add_argument('--ckpt_dir', type=str, default='semseg_ckpt')
+    parser.add_argument('--ckpt_every', type=int, default=500)
+    parser.add_argument('--dp', type=int, default=None,
+                        help='data-parallel width (1 until the mesh slice)')
+    parser.add_argument('--device', type=str, default='cuda')
+    args = parser.parse_args(argv)
+    run(args.data_glob, args.steps, args.batch_size, args.lr,
+        args.ckpt_dir, args.ckpt_every, args.dp, device=args.device)
+
+
+if __name__ == '__main__':
+    main()

@@ -31,6 +31,23 @@ def write_ply(path: str, xyz: np.ndarray, rgb=None):
         f.write(rec.tobytes())
 
 
+def read_ply(path: str):
+    """Read a file of write_ply: (N,3) float32 points and (N,3) uint8
+    colours (None when the file has none)."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    end = data.index(b'end_header\n') + len(b'end_header\n')
+    info = read_ply_header(path)
+    rgb = 'red' in info['props']
+    dtype = [('x', '<f4'), ('y', '<f4'), ('z', '<f4')]
+    if rgb:
+        dtype += [('r', 'u1'), ('g', 'u1'), ('b', 'u1')]
+    rec = np.frombuffer(data, dtype=dtype, count=info['n'], offset=end)
+    xyz = np.stack([rec['x'], rec['y'], rec['z']], 1)
+    return xyz, (np.stack([rec['r'], rec['g'], rec['b']], 1) if rgb
+                 else None)
+
+
 def read_ply_header(path: str) -> dict:
     """Parse a PLY header: {'n': vertex count, 'props': property names}."""
     info = {'n': 0, 'props': []}

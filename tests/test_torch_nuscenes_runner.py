@@ -192,8 +192,12 @@ def test_rerun_on_manifest_is_a_noop(runs):
 
 
 def test_main_refuses_a_model_path(tmp_path):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        trun.main([str(tmp_path), 'model.onnx', '--device', 'cpu'])
+    """main loads a model path (tests/test_torch_pc_accum.py); a malformed
+    .onnx file is refused, never replaced by random weights."""
+    bad = tmp_path / 'model.onnx'
+    bad.write_bytes(bytes([0x3A, 0x7F, 0x01]))    # graph, 127 B declared
+    with pytest.raises(ValueError, match='truncated'):
+        trun.main([str(tmp_path), str(bad), '--device', 'cpu'])
 
 
 def test_oracle_main_forces_oracle_pose(monkeypatch, tmp_path):
