@@ -751,7 +751,7 @@ def _check_bevs(bevs, P):
 
 def phase_main_path(dev):
     """9 bench-configuration steps. Also returns the sorted rows the kernel
-    got in the last step's first raster."""
+    got in the last step's first raster, and each step's samples' maps."""
     from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
         SyntheticKitti360Stream)
     from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
@@ -777,7 +777,7 @@ def phase_main_path(dev):
     ss.segmented_stats_words.launches = 0
     accum.integrate([frames[0]])
     torch.cuda.synchronize()
-    step_s, occ = [], []
+    step_s, occ, kept = [], [], []
     for i, f in enumerate(frames[1:]):
         before = ss.segmented_stats_words.launches
         if i == N_STEPS - 1:   # the last step, with the most live rows
@@ -793,6 +793,8 @@ def phase_main_path(dev):
         rose = ss.segmented_stats_words.launches - before
         check(rose == BEV_NUM, f'step {i}: {rose} kernel launches')
         occ.append(_check_bevs(bevs, BEV['pixel_size']))
+        kept.append([{k: v for k, v in b.items() if not k.startswith('trajs')}
+                     for b in bevs])
     launches = ss.segmented_stats_words.launches
     check(launches == BEV_NUM * N_STEPS, launches)
     check(min(occ) > 0, occ)
@@ -805,7 +807,7 @@ def phase_main_path(dev):
                window_frames=len(accum.poses),
                occupied_cell_fraction=occ)
     emit('main_path', t0, **res)
-    return res, raster_in
+    return res, raster_in, kept
 
 
 def _runner_accum(dev, semseg, stream_cfg, bev, use_gt_sem, **kw):
@@ -1917,6 +1919,729 @@ def phase_pc_accum(dev, tmp):
         del accum
 
 
+# --- the mesh (parallel/) ------------------------------------------------
+#
+# One card: NCCL refuses two ranks on one device, so the 2-rank worlds run
+# over gloo with CUDA tensors, both ranks on cuda:0 (every gloo collective
+# on a CUDA tensor goes through host memory: parallel/mesh.py), and a
+# 1-rank world runs over NCCL. Two ranks share one card: their times are
+# not scale-out figures.
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600
+# GPipe on the pp = 2 mesh at tests/test_pipeline.py's shapes.
+PIPE = dict(d=16, mb=8, micro=(2, 4, 5), grad_d=8, grad_mb=4, grad_micro=8)
+PIPE_ATOL = 1e-5
+# Data-parallel training: run()'s global batch of 8 (4 per rank) on
+# train_path's shard and seed, TF32 off, against a one-card run of the
+# same. In float64, over SMALL_TRAIN's 3 steps, the two are held to each
+# other under the CPU tests' tolerances (SMALL_TRAIN's comment): the same
+# function computed twice, the later losses included. In float32, over 6
+# timed steps, the step-1 loss and the batch-norm statistics are held the
+# same way and the gradients and later losses reported: at 376x1408
+# float32 is the floor (gpu_vs_cpu_train's docstring), and Adam's first
+# step, about +-lr per weight, turns gradients at that floor into
+# different weights on the two runs. The float64 model's logits are
+# float32 too, so its losses drift the same way, ~3x per step: 0.03 of
+# their limit at step 3, 0.95 at step 6 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md).
+TRAIN_MESH_STEPS = 6
+TRAIN_MESH_STEPS_FLOAT64 = 3
+
+
+def _sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _mesh_plan(dev):
+    """What the mesh worlds drive: the configurations of main_path,
+    runner_path and train_path (a rehearsal on the CPU passes smaller
+    ones)."""
+    return dict(dev=str(dev), stream=STREAM, accum=ACCUM, icp=ICP,
+                horizon=HORIZON, bev=BEV, bev_num=BEV_NUM, steps=N_STEPS,
+                runner_frames=RUNNER_FRAMES, runner_accum={},
+                sampling=None, semseg={},
+                train_steps={str(torch.float64): TRAIN_MESH_STEPS_FLOAT64,
+                             str(torch.float32): TRAIN_MESH_STEPS},
+                train_batch=TRAIN_BATCH, train_stage_sizes=None)
+
+
+def _save(tmp, name, obj):
+    import pickle
+    with open(os.path.join(tmp, name + '.pkl'), 'wb') as f:
+        pickle.dump(obj, f)
+
+
+def _load(tmp, name):
+    import pickle
+    with open(os.path.join(tmp, name + '.pkl'), 'rb') as f:
+        return pickle.load(f)
+
+
+def _mesh_world(rank, n, tmp, backend, plan, parts):
+    """One rank of a mesh world: each of ``parts`` in turn, its results
+    saved as ``{backend}_r{rank}``. A rank's exception ends the spawn
+    with it, and chip_smoke with a non-zero code: the group is destroyed
+    only after success, because destroying it while peers wait in a
+    collective can block (NCCL), and the spawn ends the other ranks only
+    once this one has exited."""
+    import datetime
+
+    import torch.distributed as dist
+    dev = torch.device(plan['dev'])
+    if dev.type == 'cuda':
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method='file://' + os.path.join(tmp, 'init_'
+                                                      + backend),
+        rank=rank, world_size=n,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = {p: globals()['_mesh_' + p](rank, n, tmp, plan, dev)
+           for p in parts}
+    _save(tmp, f'{backend}_r{rank}', out)
+    dist.destroy_process_group()
+
+
+def _spawn_world(n, backend, tmp, plan, parts):
+    import torch.multiprocessing as mp
+    mp.spawn(_mesh_world, args=(n, tmp, backend, plan, parts), nprocs=n,
+             join=True)
+    return [_load(tmp, f'{backend}_r{r}') for r in range(n)]
+
+
+class _Spans:
+    """Wall time of each phase of the tile rasters of rank 0 (the engine's
+    ``mark`` hook), with a synchronize at each boundary, so device work
+    and the host's gloo staging both count."""
+
+    def __init__(self, dev):
+        self.dev, self.t, self.calls = dev, None, 0
+        self.total = {}
+
+    def mark(self, name):
+        _sync(self.dev)
+        now = time.perf_counter()
+        if name == 'start':
+            self.calls += 1
+        else:
+            self.total[name] = self.total.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def ms_per_raster(self):
+        return {k: v * 1e3 / max(self.calls, 1)
+                for k, v in self.total.items()}
+
+
+def _capture_stripe(store):
+    """sort_raster's segmented_stats namespace with segmented_stats_words
+    keeping its first call's inputs (one stripe's sorted rows)."""
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+
+    def capture(c2, w1, w2, num_groups, med_nsplit, hist_medians=True):
+        if not store:
+            store.extend((c2, w1, w2, num_groups))
+        return ss.segmented_stats_words(c2, w1, w2, num_groups,
+                                        med_nsplit=med_nsplit,
+                                        hist_medians=hist_medians)
+    return types.SimpleNamespace(**{**vars(ss),
+                                    'segmented_stats_words': capture})
+
+
+class _KeepFirstParams:
+    """An engine that keeps its first call's parameters in ``store``;
+    everything else is the engine's."""
+
+    def __init__(self, engine, store):
+        self.engine, self.store = engine, store
+
+    def __call__(self, points, valid, fids, inst_dyn, params, gen_future):
+        if not self.store:
+            self.store.append(params)
+        return self.engine(points, valid, fids, inst_dyn, params,
+                           gen_future)
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def _time_shard(client, dev, first=None):
+    """Time each ``client.shard`` (the scatter of the flat rows from rank
+    0, synchronized) into the returned list; ``first`` keeps a copy of
+    the first call's rows."""
+    shard, times = client.shard, []
+
+    def timed(points, valid, fids, inst_dyn):
+        if first is not None and not first:
+            first.extend(t.clone() for t in (points, valid, fids, inst_dyn))
+        _sync(dev)
+        ts = time.perf_counter()
+        shard(points, valid, fids, inst_dyn)
+        _sync(dev)
+        times.append(time.perf_counter() - ts)
+
+    client.shard = timed
+    return times
+
+
+def _tile_numbers(engine):
+    return dict(route_peak_rows=engine.route_peak_rows,
+                route_cap=engine.route_cap,
+                dest_cap_factor=engine.dest_cap_factor)
+
+
+def _mesh_runner(rank, n, tmp, plan, dev):
+    """The KITTI-360 runner's sampling_loop at run()'s defaults on a
+    (1, n) mesh: rank 0 integrates, samples and writes to tmp/mesh_runner,
+    the other ranks serve its tile rasters. Then every rank runs the psum
+    engine on rank 0's first raster input, which rank 0 holds to the
+    one-device raster."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.bev import core
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    from pc_accumulation_lib_tpu_torch.utils.profiling import PhaseTimer
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh((1, n), device_type=dev.type)
+    bev = dict(kr.DEFAULT_BEV_PARAMS)
+    out, first, first_params, stripe = {}, [], [], []
+    _sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    ss.segmented_stats_words.launches = 0
+    sort_raster.segmented_stats = _capture_stripe(stripe)
+    try:
+        if sharded.is_controller(mesh):
+            stream = SyntheticKitti360Stream(n_frames=plan['runner_frames'],
+                                             **plan['stream'])
+            accum = _runner_accum(dev, SemSegTorch(dev, seed=0,
+                                                   **plan['semseg']),
+                                  plan['stream'], dict(bev, mesh=mesh),
+                                  use_gt_sem=False, **plan['runner_accum'])
+            client = accum.sem_bev_generator.mesh_raster
+            engine = client.raster
+            spans = _Spans(dev)
+            engine.mark = spans.mark
+            client.raster = _KeepFirstParams(engine, first_params)
+            scatter_s = _time_shard(client, dev, first)
+            timer = PhaseTimer()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    stats = kr.sampling_loop(
+                        accum, stream,
+                        plan['sampling'] or cfg.SamplingConfig(),
+                        cfg.OutputConfig(os.path.join(tmp, 'mesh_runner'),
+                                         viz_to_disk=False), timer=timer)
+                _sync(dev)
+            finally:
+                accum.sem_bev_generator.close()
+                sharded.shutdown_mesh_workers(mesh)
+            out.update(stats, raster_ms=spans.ms_per_raster(),
+                       rows_per_raster=accum.state.valid.numel(),
+                       scatter_ms_per_sample=(
+                           sum(scatter_s) * 1e3 / max(stats['bevs'], 1)),
+                       generate_bev_ms_per_sample=(
+                           timer.totals['generate_bev'] * 1e3
+                           / max(stats['bevs'], 1)),
+                       integrate_ms_per_frame=(
+                           timer.totals['integrate'] * 1e3
+                           / stats['frames']), **_tile_numbers(engine))
+            del accum
+        else:
+            sharded.serve_mesh_rasters(mesh)
+    finally:
+        sort_raster.segmented_stats = ss
+    _sync(dev)
+    out['launches'] = ss.segmented_stats_words.launches
+    if dev.type == 'cuda':
+        out['max_memory_allocated_bytes'] = torch.cuda.max_memory_allocated()
+    out['loop_s'] = time.perf_counter() - t0
+    if dev.type == 'cuda':
+        c2, w1, w2, G = stripe
+        out['stripe_kernel'] = dict(max_abs_err=_compare(ss, c2, w1, w2, G),
+                                    **_shape(c2, G))
+    del stripe
+    # The psum engine on rank 0's first raster input: the full rows
+    # (points, valid, frame ids, inst_dyn) and the parameters.
+    is0 = pmesh.axis_rank(mesh, 'points') == 0
+    sp = sharded.shard_points_to_mesh(mesh, *(first[:3] if is0
+                                              else (None,) * 3))
+    inst, vec = pmesh.broadcast_object(
+        (first[3].cpu().numpy(), first_params[0].cpu().numpy()) if is0
+        else None,
+        mesh, 'points')
+    inst = torch.as_tensor(inst, device=dev)
+    vec = torch.as_tensor(vec, device=dev)
+    psum = sharded.make_sharded_raster_fn(
+        mesh, bev['view_size'], bev['pixel_size'], cfg.DEFAULT_SEM_IDXS,
+        bev['int_scaler'], bev['int_sep_scaler'], bev['int_mid_threshold'])
+    got = psum(*sp, inst, vec, True)
+    if is0:
+        one = core.make_raster_fn(
+            bev['view_size'], bev['pixel_size'], cfg.DEFAULT_SEM_IDXS,
+            bev['int_scaler'], bev['int_sep_scaler'],
+            bev['int_mid_threshold'])
+        want = one(first[0], first[1], first[2], inst, vec, True)
+        out['psum_vs_one_device_max_abs'] = float(
+            (got.float() - want.float()).abs().max())
+        check(out['psum_vs_one_device_max_abs'] <= SELFTEST_ATOL,
+              out['psum_vs_one_device_max_abs'])
+    out['seconds'] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_step(rank, n, tmp, plan, dev):
+    """main_path's drive on a (1, n) mesh: step(bev_num=16) for 9 steps at
+    the bench configuration, rank 0 integrating and rastering through the
+    tile engine (the flat rows scattered once per step), the others
+    serving. Rank 0 saves the samples' maps as mesh_step_bevs."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh((1, n), device_type=dev.type)
+    out = {}
+    _sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ss.segmented_stats_words.launches = 0
+    if sharded.is_controller(mesh):
+        try:
+            stream = SyntheticKitti360Stream(n_frames=plan['steps'] + 1,
+                                             **plan['stream'])
+            frames = [stream.frame(i) for i in range(plan['steps'] + 1)]
+            accum = _make_accum(dev, SemSegTorch(dev, seed=0,
+                                                 **plan['semseg']),
+                                plan['stream'], plan['accum'], plan['icp'],
+                                plan['horizon'],
+                                dict(plan['bev'], mesh=mesh),
+                                use_gt_sem=False)
+            engine = accum.sem_bev_generator.mesh_raster.raster
+            spans = _Spans(dev)
+            engine.mark = spans.mark
+            scatter_s = _time_shard(accum.sem_bev_generator.mesh_raster, dev)
+            accum.integrate([frames[0]])
+            step_s, bevs = [], []
+            try:
+                for f in frames[1:]:
+                    ts = time.perf_counter()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        got = accum.step([f], bev_num=plan['bev_num'],
+                                         gen_future=True)
+                    _sync(dev)
+                    step_s.append(time.perf_counter() - ts)
+                    bevs.append([{k: v for k, v in b.items()
+                                  if not k.startswith('trajs')}
+                                 for b in got])
+            finally:
+                accum.sem_bev_generator.close()
+            _save(tmp, 'mesh_step_bevs', bevs)
+            steady = statistics.median(step_s[1:])
+            out.update(step_s=step_s, median_step_s=steady,
+                       samples_per_s=plan['bev_num'] / steady,
+                       raster_ms=spans.ms_per_raster(),
+                       scatter_ms_per_step=statistics.median(scatter_s) * 1e3,
+                       max_live_rows=accum.max_live_rows,
+                       **_tile_numbers(engine))
+        finally:
+            sharded.shutdown_mesh_workers(mesh)
+    else:
+        sharded.serve_mesh_rasters(mesh)
+    _sync(dev)
+    out['launches'] = ss.segmented_stats_words.launches
+    if dev.type == 'cuda':
+        out['max_memory_allocated_bytes'] = torch.cuda.max_memory_allocated()
+    out['seconds'] = time.perf_counter() - t0
+    return out
+
+
+def _training_probe(make_setup, rec, dev, dtype):
+    """A make_train_setup whose model, convolutions and optimizer are in
+    ``dtype`` and whose steps record their time and, after step 1, the
+    gradients and the batch-norm running statistics on the host."""
+    from pc_accumulation_lib_tpu_torch.models.resnet_semseg import _Conv
+
+    def setup(*args, **kwargs):
+        kwargs['compute_dtype'] = dtype
+        state, train_step = make_setup(*args, **kwargs)
+        state.model.to(dtype)
+        for m in state.model.modules():
+            if isinstance(m, _Conv):   # the classifier's float32 included
+                m.compute_dtype = dtype
+        state = state._replace(optimizer=type(state.optimizer)(
+            state.model.parameters(), **state.optimizer.defaults))
+
+        def step(state, images, labels):
+            ts = time.perf_counter()
+            state, loss = train_step(state, images, labels)
+            _sync(dev)
+            rec.setdefault('step_s', []).append(time.perf_counter() - ts)
+            if 'grads' not in rec:
+                rec['grads'] = {k: p.grad.detach().cpu().numpy().copy()
+                                for k, p in state.model.named_parameters()}
+                rec['stats'] = {k: v.detach().cpu().numpy().copy()
+                                for k, v in state.model.state_dict().items()
+                                if 'running' in k}
+            return state, loss
+        return state, step
+    return setup
+
+
+def train_run(shard_glob, plan, dev, ckpt_dir, dtype):
+    """train_semseg.run over this process's world (one card without a
+    process group) in ``dtype`` with TF32 off, for the plan's float64 or
+    float32 step count; returns the probe's record with the losses."""
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    from pc_accumulation_lib_tpu_torch.runners import train_semseg
+    rec = {}
+    make_setup = train_mod.make_train_setup
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    train_mod.make_train_setup = _training_probe(make_setup, rec, dev,
+                                                 dtype)
+    try:
+        _, losses = train_semseg.run(
+            shard_glob, steps=plan['train_steps'][str(dtype)],
+            batch_size=plan['train_batch'], ckpt_dir=ckpt_dir,
+            ckpt_every=0, stage_sizes=plan['train_stage_sizes'],
+            log_every=TRAIN_MESH_STEPS, device=dev)
+    finally:
+        train_mod.make_train_setup = make_setup
+        torch.backends.cudnn.allow_tf32 = tf32
+    rec['losses'] = losses
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _mesh_train(rank, n, tmp, plan, dev):
+    """train_semseg.run data-parallel over the world (batch 8, 4 per
+    rank), in float64 then float32; rank 0 saves the records as
+    mesh_train."""
+    t0 = time.perf_counter()
+    _sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    recs = {str(dt): train_run(os.path.join(tmp, 'train', 'shard*.npz'),
+                               plan, dev, os.path.join(tmp, 'ckpt_mesh'),
+                               dt)
+            for dt in (torch.float64, torch.float32)}
+    if rank == 0:
+        _save(tmp, 'mesh_train', recs)
+    rec = recs[str(torch.float32)]
+    out = dict(losses=rec['losses'], step_s=rec['step_s'])
+    if dev.type == 'cuda':
+        out['max_memory_allocated_bytes'] = torch.cuda.max_memory_allocated()
+    out['seconds'] = time.perf_counter() - t0
+    return out
+
+
+def _dense_stage(params, x):
+    return torch.tanh(x @ params['w'] + params['b'])
+
+
+def _pipe_params(S, d, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [{'w': (torch.randn(d, d, generator=g) * 0.5).to(dev),
+             'b': torch.zeros(d).to(dev)} for _ in range(S)]
+
+
+def _mesh_gpipe(rank, n, tmp, plan, dev):
+    """GPipe on a pp = n mesh at tests/test_pipeline.py's shapes: the
+    forward for M = 2, 4, 5 microbatches and the stage gradients against
+    the sequential stack on this card."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import pipeline as pp
+    mesh = pp.make_pipeline_mesh(n, dev.type)
+    g = torch.Generator().manual_seed(1)
+    fwd = []
+    per_stage = _pipe_params(n, PIPE['d'], dev, 0)
+    mine = pp.place_stage_params(pp.stack_stage_params(per_stage), mesh)
+    run = pp.gpipe_apply(_dense_stage, mesh)
+    for M in PIPE['micro']:
+        xs = torch.randn(M, PIPE['mb'], PIPE['d'], generator=g).to(dev)
+        want = xs
+        for p in per_stage:
+            want = _dense_stage(p, want)
+        fwd.append(float((run(mine, xs) - want).abs().max()))
+    per_stage = _pipe_params(n, PIPE['grad_d'], dev, 2)
+    mine = {k: v.requires_grad_() for k, v in pp.place_stage_params(
+        pp.stack_stage_params(per_stage), mesh).items()}
+    shape = (PIPE['grad_micro'], PIPE['grad_mb'], PIPE['grad_d'])
+    xs = torch.randn(*shape, generator=g).to(dev)
+    tgt = torch.randn(*shape, generator=g).to(dev)
+    torch.mean((run(mine, xs) - tgt) ** 2).backward()
+    seq = [{k: v.clone().requires_grad_() for k, v in p.items()}
+           for p in per_stage]
+    y = xs
+    for p in seq:
+        y = _dense_stage(p, y)
+    torch.mean((y - tgt) ** 2).backward()
+    s = pmesh.axis_rank(mesh, 'pp')
+    grad = max(float((mine[k].grad - seq[s][k].grad).abs().max())
+               for k in mine)
+    check(max(fwd) <= PIPE_ATOL and grad <= PIPE_ATOL, (fwd, grad))
+    return dict(forward_max_abs=fwd, grad_max_abs=grad)
+
+
+def _mesh_nccl_raster(rank, n, tmp, plan, dev):
+    """One tile raster at the runner's width on a 1-rank NCCL mesh: the
+    runner's 256 x 131,072 made-up rows over its 80 m / 256 px BEV,
+    against the one-device raster."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.bev import core
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    t0 = time.perf_counter()
+    bev = kr.DEFAULT_BEV_PARAMS
+    a = plan['runner_accum'].get('accum_cfg') or cfg.AccumConfig()
+    m = a.max_frames * a.painted_cap
+    g = torch.Generator(device=dev).manual_seed(0)
+    pts = torch.zeros((m, cfg.PT_DIM), device=dev)
+    pts[:, :2] = (torch.rand((m, 2), generator=g, device=dev) - 0.5) * 80
+    pts[:, 2] = torch.rand(m, generator=g, device=dev) * 4 - 2
+    pts[:, 3] = torch.rand(m, generator=g, device=dev)
+    pts[:, 4:7] = torch.randint(0, 256, (m, 3), generator=g, device=dev)
+    pts[:, 7] = torch.randint(0, 19, (m,), generator=g, device=dev)
+    valid = torch.rand(m, generator=g, device=dev) > 0.1
+    fids = torch.randint(0, 10, (m,), generator=g, device=dev,
+                         dtype=torch.int32)
+    inst = torch.zeros(4, device=dev)
+    params = core.identity_params(window=(0, 9), present_frame=5)
+    mesh = pmesh.make_mesh((1, n), device_type=dev.type)
+    tile = sharded.make_tile_sharded_raster_fn(
+        mesh, bev['view_size'], bev['pixel_size'], cfg.DEFAULT_SEM_IDXS,
+        bev['int_scaler'], bev['int_sep_scaler'], bev['int_mid_threshold'])
+    ss.segmented_stats_words.launches = 0
+    got = tile(pts, valid, fids, inst, params, True)
+    tile.drain()
+    _sync(dev)
+    launches = ss.segmented_stats_words.launches
+    one = core.make_raster_fn(
+        bev['view_size'], bev['pixel_size'], cfg.DEFAULT_SEM_IDXS,
+        bev['int_scaler'], bev['int_sep_scaler'], bev['int_mid_threshold'])
+    want = one(pts, valid, fids, inst, torch.as_tensor(params.pack(),
+                                                       device=dev), True)
+    err = float((got.float() - want.float()).abs().max())
+    check(launches == (dev.type == 'cuda') and err <= SELFTEST_ATOL,
+          (launches, err))
+    return dict(rows=m, launches=launches, max_abs_vs_one_device=err,
+                seconds=time.perf_counter() - t0, **_tile_numbers(tile))
+
+
+def _mesh_nccl_train(rank, n, tmp, plan, dev):
+    """One data-parallel train step of SMALL_TRAIN's model on a (1, 1)
+    NCCL mesh against the one-device step from the same seed and batch."""
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    c = SMALL_TRAIN
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (c['batch'], *c['hw'], 3)),
+                             dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(rng.integers(0, 19, (c['batch'], *c['hw'])),
+                             device=dev)
+    losses = []
+    for mesh in (pmesh.make_mesh((n, 1), ('data', 'model'), dev.type),
+                 None):
+        state, step = train_mod.make_train_setup(
+            lr=c['lr'], seed=0, stage_sizes=c['stage_sizes'],
+            compute_dtype=torch.float32, device=dev, mesh=mesh)
+        losses.append(float(step(state, images, labels)[1]))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    check(rel <= 1e-5, losses)
+    return dict(loss_mesh=losses[0], loss_one_device=losses[1],
+                rel_err=rel)
+
+
+def _exact_and_close(a, b):
+    """Two sample sets with the same files and keys: road, dynamic, rgb
+    and elevation maps equal, every map within SELFTEST_ATOL; returns the
+    largest difference."""
+    check(sorted(a) == sorted(b), (sorted(a), sorted(b)))
+    err = 0.0
+    for f, sa in a.items():
+        sb = b[f]
+        check(set(sa) == set(sb), f)
+        for k in sa:
+            if k.startswith('trajs'):
+                check(len(sa[k]) == len(sb[k]), (f, k))
+                continue
+            if not k.startswith('intensity'):
+                check(np.array_equal(sa[k], sb[k]), (f, k, 'not exact'))
+            err = max(err, float(np.abs(sa[k].astype(np.float32)
+                                        - sb[k].astype(np.float32)).max()))
+    check(err <= SELFTEST_ATOL, err)
+    return err
+
+
+def _step_mismatch(a, b):
+    """Largest cell-mismatch fraction at MAP_ATOL over two step runs'
+    samples (the step() rule), and the largest difference."""
+    check(len(a) == len(b), (len(a), len(b)))
+    mism, err = 0.0, 0.0
+    for sa, sb in zip((s for step in a for s in step),
+                      (s for step in b for s in step)):
+        check(set(sa) == set(sb), sorted(sa))
+        for k in sa:
+            d = np.abs(sa[k].astype(np.float32) - sb[k].astype(np.float32))
+            mism = max(mism, float(np.mean(d > MAP_ATOL)))
+            err = max(err, float(d.max()))
+    check(mism < MAP_MISMATCH, mism)
+    return mism, err
+
+
+def _train_held(dp, one):
+    """The data-parallel run against the one-card run under the CPU
+    tests' tolerances (SMALL_TRAIN's comment), each error as a ratio to
+    its limit (<= 1 passes), and the three tensors farthest off."""
+    dl, ol = np.array(dp['losses']), np.array(one['losses'])
+    check(np.isfinite(dl).all() and np.isfinite(ol).all(), (dl, ol))
+    check(set(dp['grads']) == set(one['grads']), 'gradient names differ')
+    grads = {k: _rel_err(dp['grads'][k], g, 1e-4,
+                         GRAD_FLOOR * np.abs(g).max())
+             for k, g in one['grads'].items()}
+    return dict(
+        step1_loss=_rel_err(dl[0], ol[0], 1e-5, 0.0),
+        losses=_rel_err(dl, ol, 1e-4, 0.0),
+        gradients=max(grads.values()),
+        running_stats=max(_rel_err(dp['stats'][k], v, 1e-5,
+                                   1e-5 * np.abs(v).max())
+                          for k, v in one['stats'].items()),
+        worst_gradients=sorted(grads, key=grads.get)[-3:])
+
+
+def phase_mesh(dev, main_bevs, runner_samples, plan=None):
+    """The mesh paths on a world of MESH_RANKS ranks on this card (gloo):
+    the KITTI-360 runner at run()'s defaults on runner_path's 120 frames,
+    its samples held to runner_path's (road, dynamic, rgb and elevation
+    exact, every map within 2e-3), and the psum engine on one of its
+    raster inputs held to the one-device raster; step(bev_num=16) at the
+    bench configuration for 9 steps, held to main_path's samples by the
+    step() rule; train_semseg.run data-parallel at full width against a
+    one-card run, in float64 (held) and float32 (timed; TRAIN_MESH_STEPS'
+    comment); GPipe on a pp = 2 mesh against the sequential stack."""
+    plan = plan or _mesh_plan(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, 'train'))
+        _train_shard(os.path.join(tmp, 'train', 'shard0.npz'),
+                     plan['stream']['img_hw'])
+        _sync(dev)
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+        one = {str(dt): train_run(os.path.join(tmp, 'train', 'shard*.npz'),
+                                  plan, dev, os.path.join(tmp, 'ckpt_one'),
+                                  dt)
+               for dt in (torch.float64, torch.float32)}
+        ranks = _spawn_world(MESH_RANKS, 'gloo', tmp, plan,
+                             ('runner', 'step', 'train', 'gpipe'))
+        mesh_samples = _read_samples(os.path.join(tmp, 'mesh_runner'))
+        step_bevs = _load(tmp, 'mesh_step_bevs')
+        dp = _load(tmp, 'mesh_train')
+    runner = ranks[0]['runner']
+    n = runner['bevs']
+    check(n == len(runner_samples) and n > 0, (n, len(runner_samples)))
+    launches = [r['runner']['launches'] for r in ranks]
+    check(all(x == n for x in launches), ('runner launches', launches, n))
+    runner_err = _exact_and_close(mesh_samples, runner_samples)
+    step = ranks[0]['step']
+    step_launches = [r['step']['launches'] for r in ranks]
+    expect = plan['bev_num'] * plan['steps']
+    check(all(x == expect for x in step_launches),
+          ('step launches', step_launches))
+    mism, step_err = _step_mismatch(step_bevs, main_bevs)
+    emit('mesh_path', t0, ranks=MESH_RANKS, backend='gloo (CUDA tensors '
+         'through host memory; both ranks share one card)',
+         runner=dict(samples=n, launches_per_rank=launches,
+                     vs_runner_path_max_abs=runner_err,
+                     stripe_kernel=runner.get('stripe_kernel'),
+                     psum_vs_one_device_max_abs=runner[
+                         'psum_vs_one_device_max_abs'],
+                     peak_bytes_per_rank=[
+                         r['runner'].get('max_memory_allocated_bytes')
+                         for r in ranks],
+                     **{k: runner[k] for k in (
+                         'raster_ms', 'scatter_ms_per_sample',
+                         'generate_bev_ms_per_sample',
+                         'integrate_ms_per_frame', 'rows_per_raster',
+                         'route_peak_rows', 'route_cap', 'dest_cap_factor',
+                         'loop_s')}),
+         step=dict(launches_per_rank=step_launches,
+                   vs_main_path_max_cell_mismatch_fraction=mism,
+                   vs_main_path_max_abs=step_err,
+                   peak_bytes_per_rank=[
+                       r['step'].get('max_memory_allocated_bytes')
+                       for r in ranks],
+                   **{k: step[k] for k in (
+                       'step_s', 'median_step_s', 'samples_per_s',
+                       'raster_ms', 'scatter_ms_per_step', 'max_live_rows',
+                       'route_peak_rows',
+                       'route_cap', 'dest_cap_factor')}))
+    f64, f32 = str(torch.float64), str(torch.float32)
+    held64 = _train_held(dp[f64], one[f64])
+    held32 = _train_held(dp[f32], one[f32])
+    median = statistics.median(dp[f32]['step_s'][1:])
+    emit('train_mesh_path', t0, ranks=MESH_RANKS, hw=list(
+        plan['stream']['img_hw']), global_batch=plan['train_batch'],
+        steps=plan['train_steps'], float64=held64, float32=held32,
+        losses={k: dict(mesh=dp[k]['losses'], one_card=one[k]['losses'])
+                for k in (f64, f32)},
+        note='errors are ratios to their limit: <= 1 passes; held: every '
+        'float64 error, the float32 step-1 loss and running statistics; '
+        'TF32 off; two ranks share one card, so images/s is not a '
+        'scale-out figure',
+        step_s=dp[f32]['step_s'], one_card_step_s=one[f32]['step_s'],
+        float64_step_s=dp[f64]['step_s'],
+        one_card_float64_step_s=one[f64]['step_s'],
+        images_per_s=plan['train_batch'] / median,
+        one_card_images_per_s=(plan['train_batch']
+                               / statistics.median(one[f32]['step_s'][1:])),
+        peak_bytes_per_rank=[r['train'].get('max_memory_allocated_bytes')
+                             for r in ranks])
+    for name in ('step1_loss', 'losses', 'gradients', 'running_stats'):
+        check(held64[name] <= 1.0, ('float64', name, held64[name]))
+    for name in ('step1_loss', 'running_stats'):
+        check(held32[name] <= 1.0, ('float32', name, held32[name]))
+    emit('gpipe', t0, stages=MESH_RANKS, atol=PIPE_ATOL,
+         **{f'rank{r}': ranks[r]['gpipe'] for r in range(MESH_RANKS)})
+    return launches, step_launches
+
+
+def phase_mesh_nccl(dev, plan=None):
+    """The same mesh code on a 1-rank world over NCCL: one tile raster at
+    the runner's width against the one-device raster, and one
+    data-parallel train step against the one-device step."""
+    plan = plan or _mesh_plan(dev)
+    t0 = time.perf_counter()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        (r,) = _spawn_world(1, 'nccl' if dev.type == 'cuda' else 'gloo',
+                            tmp, plan, ('nccl_raster', 'nccl_train'))
+    emit('mesh_nccl', t0, raster=r['nccl_raster'], train=r['nccl_train'])
+
+
+def phase_dryrun(dev):
+    from pc_accumulation_lib_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = dryrun_multichip(MESH_RANKS, device=dev.type)
+    emit('dryrun_multichip', t0, ranks=MESH_RANKS, **summary)
+
+
 def _kernel_entry(name, replaces, launches, max_abs_err, on_runner,
                   launches_by_path):
     """One kernel's entry of the kernels line, at a runner raster's rows:
@@ -1946,7 +2671,7 @@ def main():
     phase_build()
     kern = phase_kernel(dev)
     kern2 = phase_kernel2(dev)
-    main_res, raster_in = phase_main_path(dev)
+    main_res, raster_in, main_bevs = phase_main_path(dev)
     on_path = phase_kernel_on_main_path(raster_in)
     del raster_in
     runner, samples, stats_in, runner_raster_in = phase_runner_path(dev)
@@ -1956,7 +2681,6 @@ def main():
     phase_selftest(runner_raster_in)
     del runner_raster_in
     runner2 = phase_runner_path(dev, words_kernel=False, reference=samples)[0]
-    del samples
     oracle, oracle_stats_in = phase_oracle_path(dev)
     on_oracle = phase_kernel2_on_runner_path(
         oracle_stats_in, oracle['rows_per_raster'],
@@ -1969,6 +2693,10 @@ def main():
         phase_train_path(dev, tmp)
         phase_pc_accum(dev, tmp)
     phase_gpu_vs_cpu_train(dev)
+    mesh_runner, mesh_step = phase_mesh(dev, main_bevs, samples)
+    del main_bevs, samples
+    phase_mesh_nccl(dev)
+    phase_dryrun(dev)
     # Each kernel's timing at four shapes: made-up bench raster rows, a
     # step() raster's rows, a KITTI-360 runner raster's rows, an oracle
     # raster's rows.
@@ -1993,7 +2721,9 @@ def main():
                        'kitti360_runner': runner['launches'],
                        'nuscenes_oracle': oracle['launches'],
                        'nuscenes_runner': nusc_runner['launches'],
-                       'nuscenes_runner_icp': nusc_runner['icp_launches']}),
+                       'nuscenes_runner_icp': nusc_runner['icp_launches'],
+                       'kitti360_runner_mesh2': mesh_runner,
+                       'step_mesh2': mesh_step}),
         _kernel_entry('segmented_stats', KERNEL2_REPLACES,
                       runner2['kernel2_launches'],
                       max(kern2['max_abs_err'],

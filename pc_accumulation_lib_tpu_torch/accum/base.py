@@ -51,9 +51,6 @@ class SemanticPointCloudAccumulator:
         bev_params = bev_params or {}
         if bev_params.get('type', 'sem') != 'sem':
             raise NotImplementedError('the port has the semantic BEV only')
-        if bev_params.get('mesh') is not None:
-            raise NotImplementedError(
-                "bev_params['mesh']: the port rasters on one device")
         self.sem_bev_generator = SemBEVGenerator(
             self.sem_idxs,
             bev_params.get('view_size', 80),
@@ -67,6 +64,8 @@ class SemanticPointCloudAccumulator:
             bev_params.get('height_filter'),
             seed=seed,
             fetch_dtype=bev_params.get('fetch_dtype', 'float16'),
+            mesh=bev_params.get('mesh'),  # point-sharded over its ranks
+            mesh_impl=bev_params.get('mesh_impl', 'auto'),
             device=self.device)
 
         a = self.accum_cfg

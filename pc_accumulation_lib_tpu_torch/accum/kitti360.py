@@ -23,6 +23,7 @@ from pc_accumulation_lib_tpu_torch.accum.base import (
     SemanticPointCloudAccumulator)
 from pc_accumulation_lib_tpu_torch.ops import geometry
 from pc_accumulation_lib_tpu_torch.ops import icp as icp_ops
+from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
 
 def window_update(seg_ring, ws, T_world, T_world_prev, frame_id: int,
@@ -321,7 +322,9 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         the host poses: step() is then integrate() followed by
         generate_bev(present_idx=len(poses) - 2). With compact_cap unset
         each raster sweeps the whole flat buffer instead of the compacted
-        live window."""
+        live window. On a mesh (bev_params['mesh']) the flat rows are
+        scattered over its points axis once per step and each sample is
+        the mesh engine's tuple-form raster (no prep)."""
         gen = self.sem_bev_generator
         if not gen.do_aug:
             self.integrate(observations)
@@ -341,8 +344,22 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
             flat_pts = self.state.points.view(f * n, d)
             flat_valid = self.state.valid.view(f * n)
             pt_fids = self.state.frame_ids.repeat_interleave(n)
-        prepped = gen.prep_points(flat_pts, self.state.inst_dyn,
-                                  self._pose_vec_dev)
+        prepped = None
+        if gen.mesh_raster is not None:
+            # Scatter the flat snapshot over the points axis once per step;
+            # each of the bev_num rasters then takes only its parameters.
+            ax = pmesh.axis_size(gen.mesh_raster.mesh, 'points')
+            if flat_pts.shape[0] % ax:
+                raise ValueError(
+                    f'step() on a mesh: flat point count {flat_pts.shape[0]}'
+                    f' must be divisible by the points-axis size {ax} — '
+                    'size AccumConfig.compact_cap (or max_frames * '
+                    'painted_cap) to a multiple of the mesh points axis.')
+            gen.mesh_raster.shard(flat_pts, flat_valid, pt_fids,
+                                  self.state.inst_dyn)
+        else:
+            prepped = gen.prep_points(flat_pts, self.state.inst_dyn,
+                                      self._pose_vec_dev)
 
         def trajs_fn():
             # Runs after the integrate fetches have synced the host poses.

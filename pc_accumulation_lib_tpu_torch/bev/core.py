@@ -108,6 +108,32 @@ def _view_cells(ref_xyz, valid, pt_frame_ids, params, view_size, P):
     return t, m, cells, pt_frame_ids < params.present_frame
 
 
+def packed_params(params):
+    """The (31,) parameter tensor of a packed tensor, or of a (pose_vec
+    (22,), aug9 (9,)) pair."""
+    if isinstance(params, tuple):
+        pose_vec, aug9 = params
+        return torch.cat([pose_vec, torch.as_tensor(
+            aug9, dtype=torch.float32, device=pose_vec.device)])
+    return params
+
+
+def sample_view(points, valid, pt_frame_ids, inst_dyn, params, view_size,
+                P):
+    """Per-sample view of world-frame points under unpacked ``params``:
+    the augmented points t, the (clamped) int32 cell ids, the static
+    mask (valid, in window, in view, below the height threshold, neither
+    the point nor its instance dynamic) and the 'present' split mask."""
+    ref = (geo.homo_transform(params.T_ref_world, points[:, :3])
+           - params.bev_coords)
+    t, m, cells, present_m = _view_cells(ref, valid, pt_frame_ids, params,
+                                         view_size, P)
+    inst = points[:, cfg.PT_INST].clamp(0, inst_dyn.shape[0] - 1).to(
+        torch.int64)
+    dyn_eff = torch.maximum(points[:, cfg.PT_DYN], inst_dyn[inst])
+    return t, cells, m & (dyn_eff != 1.0), present_m
+
+
 def make_raster_fn(view_size, pixel_size, sem_idxs, int_scaler,
                    int_sep_scaler, int_mid_threshold, rgb_fill=0,
                    backend='sort', use_kernel=None, pack=None,
@@ -135,19 +161,9 @@ def make_raster_fn(view_size, pixel_size, sem_idxs, int_scaler,
     use_kernel = True if use_kernel is None else bool(use_kernel)
 
     def raster(points, valid, pt_frame_ids, inst_dyn, params, gen_future):
-        if isinstance(params, tuple):
-            pose_vec, aug9 = params
-            params = torch.cat([pose_vec, torch.as_tensor(
-                aug9, dtype=torch.float32, device=pose_vec.device)])
-        params = unpack_params(params)
-        ref = (geo.homo_transform(params.T_ref_world, points[:, :3])
-               - params.bev_coords)
-        t, m, cells, present_m = _view_cells(ref, valid, pt_frame_ids,
-                                             params, view_size, P)
-        inst = points[:, cfg.PT_INST].clamp(0, inst_dyn.shape[0] - 1).to(
-            torch.int64)
-        dyn_eff = torch.maximum(points[:, cfg.PT_DYN], inst_dyn[inst])
-        static_m = m & (dyn_eff != 1.0)
+        params = unpack_params(packed_params(params))
+        t, cells, static_m, present_m = sample_view(
+            points, valid, pt_frame_ids, inst_dyn, params, view_size, P)
         z = t[:, 2]
         inten = points[:, cfg.PT_I]
         rgb = points[:, cfg.PT_R:cfg.PT_B + 1]
@@ -171,8 +187,8 @@ def make_raster_fn(view_size, pixel_size, sem_idxs, int_scaler,
                                             rgb_fill=rgb_fill)
                 for key, v in ch.items():
                     chs[f'{key}_{name}'] = v
-        return _emit_outputs(chs, meta, params, P, int_scaler,
-                             int_sep_scaler, int_mid_threshold)
+        return emit_outputs(chs, meta, params, P, int_scaler,
+                            int_sep_scaler, int_mid_threshold)
 
     return raster
 
@@ -228,14 +244,14 @@ def make_prepped_raster_fn(view_size, pixel_size, int_scaler,
         chs = sort_raster.split_stats_from_packed(
             c2, packed, packed2, P, gen_future, rgb_fill=rgb_fill)
         meta = ['present', 'future', 'full'] if gen_future else ['present']
-        return _emit_outputs(chs, meta, params, P, int_scaler,
-                             int_sep_scaler, int_mid_threshold)
+        return emit_outputs(chs, meta, params, P, int_scaler,
+                            int_sep_scaler, int_mid_threshold)
 
     return raster
 
 
-def _emit_outputs(chs, meta, params, P, int_scaler, int_sep_scaler,
-                  int_mid_threshold):
+def emit_outputs(chs, meta, params, P, int_scaler, int_sep_scaler,
+                 int_mid_threshold):
     """Channel dict -> warped, finalized (S*7, P, P) float16 stack."""
     stack = []
     for name in meta:

@@ -8,7 +8,9 @@ trajectory processing and assembly of the output dicts. Two device paths:
 ``generate_samples`` runs the classic raster over the flat point buffer
 (integrate() + generate_bev(), and the standalone ``generate`` API on
 numpy point dicts); ``generate_samples_device`` runs the prepped raster of
-the step() path.
+the step() path. On a mesh (``mesh``, built on the points axis's rank 0)
+both run the tuple-form raster of a mesh engine instead
+(parallel/sharded.py), which the other ranks of the axis serve.
 """
 from __future__ import annotations
 
@@ -50,7 +52,18 @@ def _to_rows10(pc: np.ndarray) -> np.ndarray:
 class SemBEVGenerator:
     """Augmented semantic BEV samples on ``device`` (the card unless the
     caller passes 'cpu'; nothing is allocated at construction);
-    constructor argument order as the JAX package's."""
+    constructor argument order as the JAX package's.
+
+    ``mesh``: a DeviceMesh with a 'points' axis (parallel/mesh.py); the
+    rasters then run point-sharded over its ranks, the engine picked by
+    ``mesh_impl``: 'tile' (cells stripe over the ranks, each row goes
+    once to its cell's owner, the stripes' statistics come from the
+    one-device stats stage), 'psum' (per-shard accumulators summed over
+    the axis: the readable spec, whose rgb histograms are ~200 MB per
+    split at P = 256) or 'auto' (tile where pixel_size^2 divides by the
+    axis size, else psum). Built on the axis's rank 0; the other ranks
+    run parallel/sharded.serve_mesh_rasters. ``close()`` ends its use of
+    the mesh."""
 
     def __init__(self, sem_idxs: dict, view_size: float, pixel_size: int,
                  max_trans_radius: float = 0., zoom_thresh: float = 0.,
@@ -58,7 +71,7 @@ class SemBEVGenerator:
                  int_sep_scaler: float = 1., int_mid_threshold: float = 0.5,
                  height_filter: Optional[float] = None, rgb_fill: int = 0,
                  seed: Optional[int] = None, fetch_dtype: str = 'float16',
-                 device='cuda'):
+                 mesh=None, mesh_impl: str = 'auto', device='cuda'):
         if fetch_dtype != 'float16':
             raise NotImplementedError(
                 f"fetch_dtype={fetch_dtype!r}: the port has the dense "
@@ -79,6 +92,23 @@ class SemBEVGenerator:
         self._raster_prepped = core.make_prepped_raster_fn(
             self.view_size, self.pixel_size, int_scaler, int_sep_scaler,
             int_mid_threshold, rgb_fill)
+        self.mesh_raster = None
+        if mesh is not None:
+            from pc_accumulation_lib_tpu_torch.parallel import sharded
+            self.mesh_raster = sharded.MeshRasterClient(mesh, dict(
+                view_size=self.view_size, pixel_size=self.pixel_size,
+                sem_idxs=self.sem_idxs, int_scaler=int_scaler,
+                int_sep_scaler=int_sep_scaler,
+                int_mid_threshold=int_mid_threshold, rgb_fill=rgb_fill,
+                mesh_impl=mesh_impl))
+
+    def close(self):
+        """End the generator's use of the mesh: read the tile engine's
+        pending overflow checks (raises TileRouteOverflow) and release
+        the workers' engine. Nothing to do on one device."""
+        if self.mesh_raster is not None:
+            self.mesh_raster.close()
+            self.mesh_raster = None
 
     @property
     def do_aug(self) -> bool:
@@ -189,12 +219,23 @@ class SemBEVGenerator:
                 warp_b1=float(w['b1']), warp_b2=float(w['b2']),
                 height_thresh=float(hf)).pack())
             draws.append((rot_ang, dx, dy, zoom, w))
-        vecs = self._to_device(np.stack(vecs)) if vecs else []
-        stacks = [self._raster(points, valid, pt_frame_ids, inst_dyn,
-                               vecs[i], gen_future)
-                  for i in range(n_samples)]
+        vecs = list(self._to_device(np.stack(vecs))) if vecs else []
+        stacks = self._raster_all(points, valid, pt_frame_ids, inst_dyn,
+                                  vecs, gen_future)
         finalize = self._fetch(stacks, draws, trajs, gen_future)
         return finalize if async_fetch else finalize()
+
+    def _raster_all(self, points, valid, pt_frame_ids, inst_dyn, params,
+                    gen_future):
+        """One classic-raster stack per entry of ``params``; on a mesh the
+        flat rows are scattered over it once for all of them."""
+        if not params:
+            return []
+        if self.mesh_raster is None:
+            return [self._raster(points, valid, pt_frame_ids, inst_dyn, p,
+                                 gen_future) for p in params]
+        self.mesh_raster.shard(points, valid, pt_frame_ids, inst_dyn)
+        return [self.mesh_raster(p, gen_future) for p in params]
 
     def prep_points(self, points, inst_dyn, pose_vec):
         """Once-per-step augmentation-invariant point prep
@@ -204,7 +245,9 @@ class SemBEVGenerator:
     def generate_samples_device(self, valid, pt_frame_ids, pose_vec,
                                 n_samples: int, gen_future: bool, trajs_fn,
                                 prepped):
-        """Dispatch ``n_samples`` augmented rasters of the prepped points.
+        """Dispatch ``n_samples`` augmented rasters of the prepped points
+        (on a mesh: of the rows the caller scattered with
+        ``mesh_raster.shard``; ``prepped`` is then None).
 
         ``pose_vec`` (22,) is the device-side pose half of the raster
         parameters; ``trajs_fn`` is called in the returned finalize, after
@@ -224,11 +267,15 @@ class SemBEVGenerator:
                           w['b2'], hf])
             draws.append((rot_ang, dx, dy, zoom, w))
         aug = self._to_device(np.asarray(aug9s, np.float32).reshape(-1, 9))
-        ref_xyz, packed, packed2 = prepped
-        stacks = [self._raster_prepped(ref_xyz, valid, pt_frame_ids, packed,
-                                       packed2, (pose_vec, aug[i]),
-                                       gen_future)
-                  for i in range(n_samples)]
+        if self.mesh_raster is not None:
+            stacks = [self.mesh_raster((pose_vec, aug[i]), gen_future)
+                      for i in range(n_samples)]
+        else:
+            ref_xyz, packed, packed2 = prepped
+            stacks = [self._raster_prepped(ref_xyz, valid, pt_frame_ids,
+                                           packed, packed2,
+                                           (pose_vec, aug[i]), gen_future)
+                      for i in range(n_samples)]
         return self._fetch(stacks, draws, trajs_fn, gen_future)
 
     def _process_trajs(self, traj_list, rot_ang, dx, dy, aug_view, w):
@@ -288,8 +335,9 @@ class SemBEVGenerator:
             warp_a1=float(w['a1']), warp_a2=float(w['a2']),
             warp_b1=float(w['b1']), warp_b2=float(w['b2']))
         inst_dyn = torch.zeros((1,), dtype=torch.float32, device=self.device)
-        stack = self._raster(points, valid, fids, inst_dyn,
-                             self._to_device(params.pack()), gen_future)
+        stack = self._raster_all(points, valid, fids, inst_dyn,
+                                 [self._to_device(params.pack())],
+                                 gen_future)[0]
         return self._fetch([stack], [(rot_ang, trans_dx, trans_dy,
                                       zoom_scalar, w)], trajs,
                            gen_future)()[0]

@@ -284,3 +284,36 @@ class SyntheticNuScenesStream:
     def __iter__(self):
         for i in range(self.n_frames):
             yield [self.frame(i)]
+
+
+def write_kitti360_layout(root: str, seq: str = '2013_05_28_drive_0000_sync',
+                          n_frames: int = 10, **kw) -> SyntheticKitti360Stream:
+    """Write the stream as a KITTI-360 directory tree (calibration,
+    velodyne .bin, rectified .png, raw label .bin), the layout the
+    KITTI-360 dataloader reads. PIL is imported here only."""
+    import os
+
+    from PIL import Image
+    stream = SyntheticKitti360Stream(n_frames=n_frames, **kw)
+    H_cam_velo, _, P_cam_frame = make_calib()
+    calib_dir = os.path.join(root, 'calibration')
+    os.makedirs(calib_dir, exist_ok=True)
+    np.savetxt(os.path.join(calib_dir, 'calib_cam_to_velo.txt'),
+               H_cam_velo[:3].reshape(1, -1), delimiter=' ')
+    with open(os.path.join(calib_dir, 'perspective.txt'), 'w') as f:
+        vals = ' '.join(str(v) for v in P_cam_frame.reshape(-1))
+        f.write('calib_time: synthetic\n')
+        f.write(f'P_rect_00: {vals}\n')
+    pc_dir = os.path.join(root, 'data_3d_raw', seq, 'velodyne_points', 'data')
+    img_dir = os.path.join(root, 'data_2d_raw', seq, 'image_00', 'data_rect')
+    sem_dir = os.path.join(root, 'data_3d_semantics', 'raw', seq, 'labels')
+    for d in (pc_dir, img_dir, sem_dir):
+        os.makedirs(d, exist_ok=True)
+    for i in range(n_frames):
+        img, pc, sem_gt = stream.frame(i)
+        name = f'{i:010d}'
+        pc.astype(np.float32).tofile(os.path.join(pc_dir, name + '.bin'))
+        Image.fromarray(img).save(os.path.join(img_dir, name + '.png'))
+        sem_gt.astype(np.int16).reshape(-1).tofile(
+            os.path.join(sem_dir, name + '.bin'))
+    return stream

@@ -50,19 +50,46 @@ class _BN(nn.BatchNorm2d):
     running ones as flax's BatchNorm(momentum=0.9) does: r = 0.9 r + 0.1
     batch, with the biased variance also for ``running_var`` (torch's own
     train mode stores the unbiased n/(n-1) one). Torch's momentum 0.1 is
-    flax's 0.9."""
+    flax's 0.9.
+
+    ``data_axis``: None, or (mesh, axis name) of a data-parallel mesh
+    (models/train.py sets it). Train mode then takes the statistics of
+    the whole batch over the axis's ranks, as the JAX trainer's batch
+    norms do under a batch laid out on P('data'): the sum, then the sum of
+    squared deviations from the global mean (two passes: E[x^2] - E[x]^2
+    cancels on channels whose mean dwarfs their spread), each summed over
+    the axis with a gradient that flows back to every rank."""
+
+    data_axis = None
 
     def forward(self, x):
         x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
+        if self.data_axis is not None:
+            return self._global_batch_norm(x, *self.data_axis)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=self.eps)
+
+    def _update_running(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+    def _global_batch_norm(self, x, mesh, axis):
+        from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+        n = x.numel() // x.shape[1] * pmesh.axis_size(mesh, axis)
+        mean = pmesh.psum_per_rank_loss(x.sum((0, 2, 3)), mesh, axis) / n
+        d = x - mean[None, :, None, None]
+        var = pmesh.psum_per_rank_loss((d * d).sum((0, 2, 3)), mesh,
+                                       axis) / n
+        with torch.no_grad():
+            self._update_running(mean, var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return d * scale[None, :, None, None] + self.bias[None, :, None, None]
 
 
 class Bottleneck(nn.Module):

@@ -5,15 +5,25 @@ integrates them into the accumulator, applies the three-condition BEV
 sampling policy, and writes gzip-pickled BEV dicts (and, with
 ``viz_to_disk``, PNGs) in subdirNNN/bev_NNN.pkl shards.
 
-Library use: run(...) on a KITTI-360 tree, or sampling_loop(...) on any
-iterable of observation batches; CLI: python -m
+Library use: run(...) on a KITTI-360 tree, run_sharded(...) for the
+scene-sharded job that resumes from a completion manifest, or
+sampling_loop(...) on any iterable of observation batches; CLI: python -m
 pc_accumulation_lib_tpu_torch.runners.kitti360_bev_gen <root>
-[<semseg_model>] [--device cuda]. The KITTI-360 dataloader reads images
-with PIL, imported only when a frame is read.
+[<semseg_model>] [--device cuda] [--manifest PATH --shard_idx I
+--num_shards N] [--coordinator_address host:port --num_processes N
+--process_id I]. The KITTI-360 dataloader reads images with PIL, imported
+only when a frame is read.
+
+With ``bev_params['mesh']`` (parallel/mesh.make_mesh) every rank of the
+mesh calls run() or run_sharded() with the same arguments: rank 0 of the
+points axis integrates, samples and writes, and the other ranks serve
+its point-sharded rasters (parallel/sharded.serve_mesh_rasters) until it
+ends the job, however it ends.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import Optional
 
@@ -22,6 +32,7 @@ import numpy as np
 from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.accum.kitti360 import (
     Kitti360SemanticPointCloudAccumulator)
+from pc_accumulation_lib_tpu_torch.parallel import sharded
 from pc_accumulation_lib_tpu_torch.utils.io import write_compressed_pickle
 from pc_accumulation_lib_tpu_torch.utils.profiling import PhaseTimer
 
@@ -166,16 +177,115 @@ def run(kitti360_path: str, semseg_model=None, use_gt_sem: bool = False,
     output = output or cfg.OutputConfig()
     bev_params = bev_params or dict(DEFAULT_BEV_PARAMS)
 
-    calib_params = build_calib_params(kitti360_path)
-    sem_pc_accum = Kitti360SemanticPointCloudAccumulator(
-        accum_horizon_dist, calib_params, icp_threshold, semseg_model,
-        cfg.DEFAULT_SEMSEG_FILTERS, cfg.DEFAULT_SEM_IDXS, use_gt_sem,
-        bev_params, accum_cfg=accum_cfg, icp_cfg=icp_cfg, seed=seed,
-        img_transfer=img_transfer, transfer_dtype=pc_transfer,
-        device=device)
-    dataloader = Kitti360Dataloader(kitti360_path, 1, sequences, start_idxs,
-                                    end_idxs)
-    return sampling_loop(sem_pc_accum, dataloader, sampling, output)
+    mesh = bev_params.get('mesh')
+    if mesh is not None and not sharded.is_controller(mesh):
+        sharded.serve_mesh_rasters(mesh)
+        return {'frames': 0, 'bevs': 0}
+    try:
+        calib_params = build_calib_params(kitti360_path)
+        sem_pc_accum = Kitti360SemanticPointCloudAccumulator(
+            accum_horizon_dist, calib_params, icp_threshold, semseg_model,
+            cfg.DEFAULT_SEMSEG_FILTERS, cfg.DEFAULT_SEM_IDXS, use_gt_sem,
+            bev_params, accum_cfg=accum_cfg, icp_cfg=icp_cfg, seed=seed,
+            img_transfer=img_transfer, transfer_dtype=pc_transfer,
+            device=device)
+        dataloader = Kitti360Dataloader(kitti360_path, 1, sequences,
+                                        start_idxs, end_idxs)
+        try:
+            return sampling_loop(sem_pc_accum, dataloader, sampling, output)
+        finally:
+            # Surfaces the tile raster's last deferred overflow checks.
+            sem_pc_accum.sem_bev_generator.close()
+    finally:
+        if mesh is not None:
+            sharded.shutdown_mesh_workers(mesh)
+
+
+def run_sharded(kitti360_path: str, semseg_model=None,
+                use_gt_sem: bool = False, sequences=None, start_idxs=None,
+                end_idxs=None, accum_horizon_dist: float = 200.0,
+                icp_threshold: float = 1e3,
+                bev_params: Optional[dict] = None,
+                sampling: Optional[cfg.SamplingConfig] = None,
+                output: Optional[cfg.OutputConfig] = None,
+                accum_cfg: Optional[cfg.AccumConfig] = None,
+                icp_cfg: Optional[cfg.ICPConfig] = None,
+                seed: Optional[int] = None,
+                manifest_path: Optional[str] = None, shard_idx: int = 0,
+                num_shards: int = 1, on_bev=None,
+                img_transfer: Optional[str] = None,
+                pc_transfer: str = 'float32', *, device='cuda') -> dict:
+    """Scene-sharded dataset job that resumes from a manifest.
+
+    Each sequence is a unit of work with a fresh accumulator. Units are
+    strided over ``num_shards`` (parallel/manifest.shard_units), finished
+    units are recorded in the JSON-lines manifest, and a restarted job
+    runs only the pending ones. The subdirNNN/bev_NNN numbering goes on
+    from the manifest's per-unit counts, so a unit that crashed part way
+    is written again over the same file names, byte for byte (the seed is
+    per unit). With ``num_shards > 1`` shard i writes under
+    ``output_dir/shardII/``. A unit is recorded only after its
+    generator's close(), so a TileRouteOverflow leaves it pending.
+    Returns {frames, bevs, units, resumed_at}."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.kitti360 import (
+        Kitti360Dataloader)
+    from pc_accumulation_lib_tpu_torch.parallel.manifest import (
+        CompletionManifest, shard_units)
+    sequences = list(sequences or cfg.KITTI360_SEQUENCES)
+    start_idxs = list(start_idxs or cfg.KITTI360_START_IDXS)
+    end_idxs = list(end_idxs or cfg.KITTI360_END_IDXS)
+    sampling = sampling or cfg.SamplingConfig()
+    output = output or cfg.OutputConfig()
+    mesh = (bev_params or {}).get('mesh')
+    if mesh is not None and not sharded.is_controller(mesh):
+        sharded.serve_mesh_rasters(mesh)
+        return {'frames': 0, 'bevs': 0, 'units': [], 'resumed_at': 0}
+    try:
+        if num_shards > 1:
+            output = dataclasses.replace(
+                output, output_dir=os.path.join(output.output_dir,
+                                                f'shard{shard_idx:02d}'))
+        manifest = (CompletionManifest(manifest_path) if manifest_path
+                    else None)
+        spans = {seq: (s, e)
+                 for seq, s, e in zip(sequences, start_idxs, end_idxs)}
+        pending = shard_units(sequences, shard_idx, num_shards, manifest)
+        # Seat the numbering after every sample of this shard's finished
+        # units (a unit that crashed part way runs again over its names).
+        done_count = 0
+        if manifest is not None:
+            for i, u in enumerate(sequences):
+                rec = manifest.get(u)
+                if i % num_shards == shard_idx and rec is not None:
+                    done_count += int(rec.get('bevs', 0))
+        calib_params = build_calib_params(kitti360_path)
+        total_frames, total_new = 0, 0
+        for unit in pending:
+            s, e = spans[unit]
+            sem_pc_accum = Kitti360SemanticPointCloudAccumulator(
+                accum_horizon_dist, calib_params, icp_threshold,
+                semseg_model, cfg.DEFAULT_SEMSEG_FILTERS,
+                cfg.DEFAULT_SEM_IDXS, use_gt_sem, bev_params,
+                accum_cfg=accum_cfg, icp_cfg=icp_cfg, seed=seed,
+                img_transfer=img_transfer, transfer_dtype=pc_transfer,
+                device=device)
+            dataloader = Kitti360Dataloader(kitti360_path, 1, [unit], [s],
+                                            [e])
+            try:
+                stats = sampling_loop(sem_pc_accum, dataloader, sampling,
+                                      output, on_bev=on_bev,
+                                      start_count=done_count + total_new)
+            finally:
+                sem_pc_accum.sem_bev_generator.close()
+            total_frames += stats['frames']
+            total_new += stats['bevs']
+            if manifest is not None:
+                manifest.mark_done(unit, bevs=stats['bevs'])
+        return {'frames': total_frames, 'bevs': total_new,
+                'units': list(pending), 'resumed_at': done_count}
+    finally:
+        if mesh is not None:
+            sharded.shutdown_mesh_workers(mesh)
 
 
 def main(argv=None):
@@ -205,7 +315,23 @@ def main(argv=None):
                         choices=('rgb8',))
     parser.add_argument('--pc_transfer', type=str, default='float32',
                         choices=('float32', 'quantized'))
+    # Scene-sharded job (run_sharded): per-sequence units, a JSON-lines
+    # completion manifest, the strided shard of the units.
+    parser.add_argument('--manifest', type=str, default=None)
+    parser.add_argument('--shard_idx', type=int, default=0)
+    parser.add_argument('--num_shards', type=int, default=1)
+    # Multi-host bring-up (parallel/mesh.initialize_multihost): each
+    # process runs its own scene shard; the manifest keeps restarts from
+    # repeating finished units.
+    parser.add_argument('--coordinator_address', type=str, default=None)
+    parser.add_argument('--num_processes', type=int, default=None)
+    parser.add_argument('--process_id', type=int, default=None)
     args = parser.parse_args(argv)
+
+    from pc_accumulation_lib_tpu_torch.parallel.mesh import (
+        initialize_multihost)
+    initialize_multihost(args.coordinator_address, args.num_processes,
+                         args.process_id)
 
     semseg_model = None
     if not args.use_gt_sem:
@@ -224,7 +350,11 @@ def main(argv=None):
         'int_mid_threshold': args.int_mid_threshold,
         'height_filter': args.height_filter,
     }
-    stats = run(
+    entry = run_sharded if (args.manifest or args.num_shards > 1) else run
+    extra = ({'manifest_path': args.manifest, 'shard_idx': args.shard_idx,
+              'num_shards': args.num_shards}
+             if entry is run_sharded else {})
+    stats = entry(
         args.kitti360_path, semseg_model, args.use_gt_sem,
         accum_horizon_dist=args.accum_horizon_dist,
         icp_threshold=args.icp_threshold, bev_params=bev_params,
@@ -234,7 +364,7 @@ def main(argv=None):
         output=cfg.OutputConfig(args.bev_output_dir,
                                 viz_to_disk=not args.no_viz),
         img_transfer=args.img_transfer, pc_transfer=args.pc_transfer,
-        device=args.device)
+        device=args.device, **extra)
     print(stats)
 
 

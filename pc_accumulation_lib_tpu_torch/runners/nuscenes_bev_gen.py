@@ -9,6 +9,10 @@ manifest and strided shards.
 Library use: run(...) with a devkit object or a test double as ``nusc``;
 CLI: python -m pc_accumulation_lib_tpu_torch.runners.nuscenes_bev_gen
 <dataroot> [<semseg_model>] [--use_oracle_pose] [--device cuda].
+
+With ``bev_params['mesh']`` every rank of the mesh calls run() with the
+same arguments; rank 0 of the points axis runs the job and the others
+serve its point-sharded rasters (parallel/sharded.serve_mesh_rasters).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import List, Optional
 import torch
 
 from pc_accumulation_lib_tpu_torch import config as cfg
+from pc_accumulation_lib_tpu_torch.parallel import sharded
 from pc_accumulation_lib_tpu_torch.parallel.manifest import (
     CompletionManifest, shard_units)
 from pc_accumulation_lib_tpu_torch.utils.io import write_compressed_pickle
@@ -155,79 +160,92 @@ def run(nuscenes_path: str, semseg_model=None,
     output = output or cfg.OutputConfig()
     skip_attr = skip_attr or []
     bev_params = bev_params or dict(DEFAULT_BEV_PARAMS)
-
-    if nusc is None:
-        from nuscenes.nuscenes import NuScenes
-        nusc = NuScenes(dataroot=nuscenes_path, version=version)
-    manifest = CompletionManifest(manifest_path) if manifest_path else None
-    if num_shards > 1:
-        # Shards share the manifest file, never an output file.
-        output = dataclasses.replace(
-            output, output_dir=os.path.join(output.output_dir,
-                                            f'shard{shard_idx:02d}'))
-    writer = None
-    if output.async_io:
-        from pc_accumulation_lib_tpu_torch.utils.async_writer import (
-            AsyncPickleWriter)
-        writer = AsyncPickleWriter()
-    scene_ids = list(range(start_scene_idx,
-                           min(end_scene_idx, len(nusc.scene))))
-    all_units = [str(s) for s in scene_ids]
-    scene_units = shard_units(all_units, shard_idx, num_shards, manifest)
-    # Resume the numbering after the samples this shard already wrote.
-    bev_count = 0
-    if manifest is not None:
-        for i, u in enumerate(all_units):
-            rec = manifest.get(u)
-            if i % num_shards == shard_idx and rec is not None:
-                bev_count += int(rec.get('bevs', 0))
-    resumed_at = bev_count
-    for scene_str in scene_units:
-        scene_id = int(scene_str)
-        attrs, loc = scene_attributes(nusc, scene_id)
-        print(f'Processing scene id {scene_id} | {loc}')
-        if do_scene_idxs and scene_id not in do_scene_idxs:
-            print(f'\tSkip scene id {scene_id} (not in idx list)')
-            if manifest is not None:
-                manifest.mark_skipped(scene_str, 'idx_list')
-            continue
-        skip, hits = should_skip_scene(attrs, skip_attr)
-        if skip:
-            print(f'\tSkip scene id {scene_id} ({" ".join(hits)})')
-            if manifest is not None:
-                manifest.mark_skipped(scene_str, ' '.join(hits))
-            continue
-
-        if use_oracle_pose:
-            sem_pc_accum = NuScenesOracleSemanticPointCloudAccumulator(
-                semseg_model, NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False,
-                bev_params, loc, get_gt_lanes, nuscenes_path,
-                accum_cfg=accum_cfg, seed=seed, img_transfer=img_transfer,
-                transfer_dtype=pc_transfer, device=device)
-        else:
-            sem_pc_accum = NuScenesSemanticPointCloudAccumulator(
-                accum_horizon_dist, icp_threshold, semseg_model,
-                NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False, bev_params,
-                loc, accum_cfg=accum_cfg, icp_cfg=icp_cfg, seed=seed,
-                img_transfer=img_transfer, transfer_dtype=pc_transfer,
-                device=device)
-
-        # Phase 1: integrate the whole scene.
-        for observations in NuScenesDataloader(nusc, [scene_id], 1,
-                                               num_sweeps):
-            sem_pc_accum.integrate(observations)
-        if use_oracle_pose:
-            sem_pc_accum.check_painted()
-        # Phase 2: sample and write.
-        scene_bevs = write_scene_samples(sem_pc_accum, scene_id, sampling,
-                                         output, bev_count, writer)
-        bev_count += scene_bevs
+    mesh = bev_params.get('mesh')
+    if mesh is not None and not sharded.is_controller(mesh):
+        sharded.serve_mesh_rasters(mesh)
+        return {'bevs': 0, 'units': [], 'resumed_at': 0}
+    try:
+        if nusc is None:
+            from nuscenes.nuscenes import NuScenes
+            nusc = NuScenes(dataroot=nuscenes_path, version=version)
+        manifest = CompletionManifest(manifest_path) if manifest_path else None
+        if num_shards > 1:
+            # Shards share the manifest file, never an output file.
+            output = dataclasses.replace(
+                output, output_dir=os.path.join(output.output_dir,
+                                                f'shard{shard_idx:02d}'))
+        writer = None
+        if output.async_io:
+            from pc_accumulation_lib_tpu_torch.utils.async_writer import (
+                AsyncPickleWriter)
+            writer = AsyncPickleWriter()
+        scene_ids = list(range(start_scene_idx,
+                               min(end_scene_idx, len(nusc.scene))))
+        all_units = [str(s) for s in scene_ids]
+        scene_units = shard_units(all_units, shard_idx, num_shards, manifest)
+        # Resume the numbering after the samples this shard already wrote.
+        bev_count = 0
         if manifest is not None:
-            manifest.mark_done(scene_str, bevs=scene_bevs)
-    if writer is not None:
-        writer.wait()
-    return {'bevs': bev_count - resumed_at, 'units': list(scene_units),
-            'resumed_at': resumed_at}
+            for i, u in enumerate(all_units):
+                rec = manifest.get(u)
+                if i % num_shards == shard_idx and rec is not None:
+                    bev_count += int(rec.get('bevs', 0))
+        resumed_at = bev_count
+        for scene_str in scene_units:
+            scene_id = int(scene_str)
+            attrs, loc = scene_attributes(nusc, scene_id)
+            print(f'Processing scene id {scene_id} | {loc}')
+            if do_scene_idxs and scene_id not in do_scene_idxs:
+                print(f'\tSkip scene id {scene_id} (not in idx list)')
+                if manifest is not None:
+                    manifest.mark_skipped(scene_str, 'idx_list')
+                continue
+            skip, hits = should_skip_scene(attrs, skip_attr)
+            if skip:
+                print(f'\tSkip scene id {scene_id} ({" ".join(hits)})')
+                if manifest is not None:
+                    manifest.mark_skipped(scene_str, ' '.join(hits))
+                continue
+
+            if use_oracle_pose:
+                sem_pc_accum = NuScenesOracleSemanticPointCloudAccumulator(
+                    semseg_model, NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS,
+                    False, bev_params, loc, get_gt_lanes, nuscenes_path,
+                    accum_cfg=accum_cfg, seed=seed, img_transfer=img_transfer,
+                    transfer_dtype=pc_transfer, device=device)
+            else:
+                sem_pc_accum = NuScenesSemanticPointCloudAccumulator(
+                    accum_horizon_dist, icp_threshold, semseg_model,
+                    NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False, bev_params,
+                    loc, accum_cfg=accum_cfg, icp_cfg=icp_cfg, seed=seed,
+                    img_transfer=img_transfer, transfer_dtype=pc_transfer,
+                    device=device)
+
+            try:
+                # Phase 1: integrate the whole scene.
+                for observations in NuScenesDataloader(nusc, [scene_id], 1,
+                                                       num_sweeps):
+                    sem_pc_accum.integrate(observations)
+                if use_oracle_pose:
+                    sem_pc_accum.check_painted()
+                # Phase 2: sample and write.
+                scene_bevs = write_scene_samples(sem_pc_accum, scene_id,
+                                                 sampling, output, bev_count,
+                                                 writer)
+            finally:
+                # Before mark_done: a TileRouteOverflow from the tile raster's
+                # last deferred checks leaves the scene pending.
+                sem_pc_accum.sem_bev_generator.close()
+            bev_count += scene_bevs
+            if manifest is not None:
+                manifest.mark_done(scene_str, bevs=scene_bevs)
+        if writer is not None:
+            writer.wait()
+        return {'bevs': bev_count - resumed_at, 'units': list(scene_units),
+                'resumed_at': resumed_at}
+    finally:
+        if mesh is not None:
+            sharded.shutdown_mesh_workers(mesh)
 
 
 def main(argv=None):

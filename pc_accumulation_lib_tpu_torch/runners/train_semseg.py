@@ -1,16 +1,19 @@
-"""Semantic-segmentation training entry point, on one device.
+"""Semantic-segmentation training entry point.
 
 Counterpart of runners/train_semseg.py: trains the ResNet-50 FCN
 (models/train.py) on (image, label) pairs, with a checkpoint every
-``ckpt_every`` steps and at the end (models/checkpoint.py). Training over
-a data/tensor-parallel mesh waits for the mesh slice.
+``ckpt_every`` steps and at the end (models/checkpoint.py). In a process
+group (parallel/mesh.initialize_multihost) every rank runs run() with the
+same arguments and trains data-parallel on a ('data', 'model') mesh of
+(world, 1); data rank 0 writes the checkpoints.
 
 Data format: .npz shards with arrays ``images`` (N,H,W,3) uint8 and
 ``labels`` (N,H,W) int (255 = ignore), e.g. produced by projecting
 KITTI-360 3D semantic GT into the camera.
 
 CLI: python -m pc_accumulation_lib_tpu_torch.runners.train_semseg
-'<data_glob>' [--steps N] [--device cuda].
+'<data_glob>' [--steps N] [--device cuda] [--dp N]
+[--coordinator_address host:port --num_processes N --process_id I].
 """
 from __future__ import annotations
 
@@ -43,16 +46,31 @@ def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
         ckpt_every: int = 500, dp: int = None, seed: int = 0,
         stage_sizes=None, log_every: int = 50, *, device='cuda'):
     """Train for ``steps`` steps on ``device`` (the card unless the
-    caller passes 'cpu'). ``dp`` is the data-parallel width: None or 1
-    here. Returns (state, losses)."""
+    caller passes 'cpu'). ``batch_size`` is the global batch. ``dp`` is
+    the data-parallel width: None takes the process group's world size (1
+    without a group); a width below it would leave ranks to tensor
+    parallelism, which is not ported. Returns (state, losses), the global
+    losses on every rank."""
+    import torch.distributed as dist
+
     from pc_accumulation_lib_tpu_torch.models import checkpoint as ckpt
     from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
-    if dp not in (None, 1):
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dp = world if dp is None else dp
+    if dp < world:
         raise NotImplementedError(
-            f'dp={dp}: data-parallel training waits for the mesh slice '
-            '(ROADMAP "Still to port" item 9); this runner trains on one '
-            'device')
+            f'dp={dp} on {world} ranks: the ranks beyond the data axis '
+            'would be a tensor-parallel (TP) model axis, which is not '
+            'ported (ROADMAP queue 1 item 2)')
+    if dp > world:
+        raise ValueError(f'dp={dp} exceeds the {world} ranks')
+    mesh, writer = None, True
+    if dist.is_initialized():
+        mesh = pmesh.make_mesh((dp, 1), ('data', 'model'),
+                               torch.device(device).type)
+        writer = pmesh.axis_rank(mesh, 'data') == 0
     shards = sorted(glob.glob(data_glob))
     if not shards:
         raise FileNotFoundError(f'no training shards match {data_glob!r}')
@@ -60,7 +78,7 @@ def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
         hw = d['images'].shape[1:3]
     state, train_step = train_mod.make_train_setup(
         lr=lr, img_hw=tuple(hw), seed=seed, stage_sizes=stage_sizes,
-        device=device)
+        device=device, mesh=mesh)
 
     it = iterate_batches(shards, batch_size, seed)
     losses = []
@@ -73,9 +91,9 @@ def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
         losses.append(float(loss))
         if step_i % log_every == 0:
             print(f'step {step_i} | loss {np.mean(losses[-log_every:]):.4f}')
-        if ckpt_every and step_i % ckpt_every == 0:
+        if writer and ckpt_every and step_i % ckpt_every == 0:
             ckpt.save_train_state(ckpt_dir, step_i, state)
-    if ckpt_every and steps % ckpt_every:
+    if writer and ckpt_every and steps % ckpt_every:
         ckpt.save_train_state(ckpt_dir, steps, state)
     return state, losses
 
@@ -90,9 +108,16 @@ def main(argv=None):
     parser.add_argument('--ckpt_dir', type=str, default='semseg_ckpt')
     parser.add_argument('--ckpt_every', type=int, default=500)
     parser.add_argument('--dp', type=int, default=None,
-                        help='data-parallel width (1 until the mesh slice)')
+                        help='data-parallel width (default: every rank)')
     parser.add_argument('--device', type=str, default='cuda')
+    parser.add_argument('--coordinator_address', type=str, default=None)
+    parser.add_argument('--num_processes', type=int, default=None)
+    parser.add_argument('--process_id', type=int, default=None)
     args = parser.parse_args(argv)
+    from pc_accumulation_lib_tpu_torch.parallel.mesh import (
+        initialize_multihost)
+    initialize_multihost(args.coordinator_address, args.num_processes,
+                         args.process_id)
     run(args.data_glob, args.steps, args.batch_size, args.lr,
         args.ckpt_dir, args.ckpt_every, args.dp, device=args.device)
 

@@ -39,6 +39,7 @@ from pc_accumulation_lib_tpu_torch.bev import viz as tviz
 from pc_accumulation_lib_tpu_torch.dataloaders import kitti360 as tk360
 from pc_accumulation_lib_tpu_torch.dataloaders import lanemap as tlane
 from pc_accumulation_lib_tpu_torch.dataloaders import nuscenes_utils as tnu
+from pc_accumulation_lib_tpu_torch.dataloaders import synthetic as tsyn
 from pc_accumulation_lib_tpu_torch.models import semseg as tsemseg
 from pc_accumulation_lib_tpu_torch.ops import trajectory as ttraj
 from pc_accumulation_lib_tpu_torch.parallel import manifest as tman
@@ -481,3 +482,25 @@ def test_sem_bev_generator_defaults_to_cuda_and_allocates_nothing():
     assert gen.device == torch.device('cuda')
     if not torch.cuda.is_available():
         assert not torch.cuda.is_initialized()
+
+
+def test_write_kitti360_layout_matches_jax(tmp_path):
+    """The port's copy of write_kitti360_layout writes the JAX package's
+    tree byte for byte (calibration, velodyne, PNG and label files)."""
+    import os
+
+    def read(path):
+        with open(path, 'rb') as f:
+            return f.read()
+
+    trees = {}
+    for name, write in (('jax', write_kitti360_layout),
+                        ('torch', tsyn.write_kitti360_layout)):
+        root = str(tmp_path / name)
+        write(root, n_frames=2, step=2.0, lidar_range=15.0, seed=5,
+              points_per_frame=500)
+        trees[name] = {os.path.relpath(os.path.join(d, f), root):
+                       read(os.path.join(d, f))
+                       for d, _, names in os.walk(root) for f in names}
+    assert len(trees['jax']) == 8
+    assert trees['torch'] == trees['jax']

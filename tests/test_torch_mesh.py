@@ -1,0 +1,205 @@
+"""The port's point-sharded rasters (parallel/sharded.py) against the JAX
+package's, on 4 ranks.
+
+One gloo world of 4 spawned ranks (tests/torch_mesh_worlds.mesh_cases)
+runs every port case on the same seeded rows as the JAX side, which runs
+on 4 of the conftest's 8 CPU devices: a (1, 4) ('data', 'points') mesh,
+and (2, 2) for multi-stream. Tolerances, as the JAX package's own
+tests/test_sharding.py holds its mesh rasters:
+  * psum engine and multi-stream: float16 stacks within 1e-3 (intensity
+    2e-3: float32 sums in another order);
+  * tile engine: 1e-3 (intensity 4e-3: it rides the u16 payload);
+  * every rank's output equal to rank 0's; the tuple-form parameters
+    give the packed form's stack exactly; the routing counters, the
+    overflow message and the calibrated factor equal JAX's exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from pc_accumulation_lib_tpu.bev import core
+from pc_accumulation_lib_tpu.bev.sem_bev import SemBEVGenerator
+from pc_accumulation_lib_tpu.parallel import mesh as mesh_mod
+from pc_accumulation_lib_tpu.parallel import sharded
+from pc_accumulation_lib_tpu_torch.parallel import dryrun
+from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+
+import torch_mesh_worlds as w
+
+N = 4
+
+
+def _tol(key, tile=False):
+    if key.startswith('intensity'):
+        return 4e-3 if tile else 2e-3
+    return 1e-3
+
+
+def _jax_params(stream=0):
+    p = core.identity_params(window=(0, 9), present_frame=5 + stream)
+    return p._replace(rot_ang=0.3 * stream, trans_dx=0.5 * stream)
+
+
+@pytest.fixture(scope='module')
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp('mesh')
+    w.spawn_world('mesh_cases', N, tmp)
+    port = [w.load(tmp, f'mesh_r{r}') for r in range(N)]
+
+    mesh = mesh_mod.make_mesh((1, N), devices=jax.devices()[:N])
+    pts, valid, fids = (jnp.asarray(a) for a in w.make_points(0))
+    sp, sv, sf = sharded.shard_points_to_mesh(mesh, pts, valid, fids)
+    inst = jnp.zeros(4, jnp.float32)
+    params = _jax_params()
+    jx = {}
+    psum = sharded.make_sharded_raster_fn(mesh, 40.0, w.P, w.SEM_IDXS, 20.,
+                                          20., 0.5)
+    for gf in (True, False):
+        jx[f'psum_{gf}'] = np.asarray(psum(sp, sv, sf, inst, params, gf),
+                                      np.float32)
+    tile = sharded.make_tile_sharded_raster_fn(mesh, 40.0, w.P, w.SEM_IDXS,
+                                               20., 20., 0.5)
+    jx['tile'] = np.asarray(tile(sp, sv, sf, inst, params, True), np.float32)
+    tile.drain()
+    jx['tile_route'] = (tile.route_peak_rows, tile.route_cap)
+    gen = SemBEVGenerator(w.SEM_IDXS, 40.0, 31, int_scaler=20.,
+                          int_sep_scaler=20., int_mid_threshold=0.5,
+                          mesh=mesh)
+    jx['auto_31'] = np.asarray(gen._raster(sp, sv, sf, inst, params, True),
+                               np.float32)
+    over = sharded.make_tile_sharded_raster_fn(
+        mesh, 40.0, w.P, w.SEM_IDXS, 20., 20., 0.5, dest_cap_factor=0.02,
+        calibrate_dest_cap=0)
+    over(sp, sv, sf, inst, params, True)
+    with pytest.raises(sharded.TileRouteOverflow) as e:
+        over.drain()
+    jx['overflow'] = (str(e.value), over.route_peak_rows, over.route_cap)
+    cal = sharded.make_tile_sharded_raster_fn(
+        mesh, 40.0, w.P, w.SEM_IDXS, 20., 20., 0.5, dest_cap_factor=4.0,
+        calibrate_dest_cap=2.0)
+    seq = []
+    for _ in range(w.CALIB_CALLS):
+        cal(sp, sv, sf, inst, params, True)
+        seq.append((cal.dest_cap_factor, cal.route_cap, cal.route_peak_rows))
+    cal.drain()
+    seq.append((cal.dest_cap_factor, cal.route_cap, cal.route_peak_rows))
+    jx['calib'] = seq
+
+    mesh2 = mesh_mod.make_mesh((2, 2), devices=jax.devices()[:N])
+    from jax.sharding import NamedSharding, PartitionSpec as PS
+    streams = [w.make_points(10 + s) for s in range(2)]
+
+    def put(a, spec):
+        return jax.device_put(np.stack(a), NamedSharding(mesh2, spec))
+
+    rows = PS('data', 'points')
+    ms = sharded.make_multistream_raster_fn(mesh2, 40.0, w.P, w.SEM_IDXS,
+                                            20., 20., 0.5)
+    jx['multistream'] = np.asarray(ms(
+        put([s[0] for s in streams], rows), put([s[1] for s in streams], rows),
+        put([s[2] for s in streams], rows),
+        put([np.zeros(4, np.float32)] * 2, PS('data')),
+        put([_jax_params(s).pack() for s in range(2)], PS('data')), True),
+        np.float32)
+    return port, jx
+
+
+def _maps_close(got, want, gen_future, tile=False):
+    g = core.unpack_maps(got, gen_future)
+    e = core.unpack_maps(want, gen_future)
+    assert set(g) == set(e)
+    for k in e:
+        np.testing.assert_allclose(g[k], e[k], atol=_tol(k, tile),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize('gen_future', [True, False])
+def test_psum_engine_matches_jax(runs, gen_future):
+    port, jx = runs
+    _maps_close(port[0][f'psum_{gen_future}'], jx[f'psum_{gen_future}'],
+                gen_future)
+    for r in range(1, N):
+        np.testing.assert_array_equal(port[r][f'psum_{gen_future}'],
+                                      port[0][f'psum_{gen_future}'])
+
+
+def test_tile_engine_matches_jax(runs):
+    port, jx = runs
+    _maps_close(port[0]['tile'], jx['tile'], True, tile=True)
+    assert port[0]['tile_route'] == jx['tile_route']
+    assert 0 < port[0]['tile_route'][0] <= port[0]['tile_route'][1]
+    for r in range(1, N):
+        np.testing.assert_array_equal(port[r]['tile'], port[0]['tile'])
+
+
+def test_tile_tuple_form_equals_packed(runs):
+    port, _ = runs
+    for r in range(N):
+        np.testing.assert_array_equal(port[r]['tile_tuple'],
+                                      port[r]['tile'])
+    assert port[0]['tile_packed'].shape == (7, w.P, w.P)
+
+
+def test_auto_falls_back_to_psum(runs):
+    """961 cells do not stripe over 4 ranks: 'auto' takes the psum
+    engine (the tile engine's is a class), an explicit 'tile' raises."""
+    port, jx = runs
+    assert port[0]['auto_engine'] == 'function'
+    _maps_close(port[0]['auto_31'], jx['auto_31'], True)
+    assert 'divisible' in port[0]['tile_31']
+
+
+def test_tile_overflow_raises_as_jax(runs):
+    port, jx = runs
+    msg, peak, cap = port[0]['overflow']
+    assert 'set dest_cap_factor >= ' in msg
+    assert peak > cap
+    assert port[0]['overflow'] == jx['overflow']
+    for r in range(1, N):                 # every rank reads the same counts
+        assert port[r]['overflow'] == port[0]['overflow']
+
+
+def test_calibration_moves_as_jax(runs):
+    """The factor and the capacity change on the same calls as JAX's
+    (counts read three calls behind), to JAX's calibrated factor; the
+    outputs stay within the tile tolerance."""
+    port, jx = runs
+    assert port[0]['calib'] == jx['calib']
+    final_factor, final_cap, peak = port[0]['calib'][-1]
+    assert 1.0 <= final_factor < 4.0
+    assert 0 < peak <= final_cap < port[0]['calib'][3][1]
+    first, last = port[0]['calib_stacks']
+    _maps_close(last, first, True, tile=True)
+
+
+def test_multistream_matches_jax(runs):
+    port, jx = runs
+    for r in range(N):
+        d, stack = port[r]['multistream']
+        assert stack.shape == (1, 21, w.P, w.P)
+        _maps_close(stack[0], jx['multistream'][d], True)
+
+
+def test_shard_points_to_mesh(runs):
+    port, _ = runs
+    pts, valid, fids = w.make_points(0)
+    m = w.M // N
+    for r in range(N):
+        sp, sv, sf = port[r]['shard']
+        sl = slice(r * m, (r + 1) * m)
+        np.testing.assert_array_equal(sp, pts[sl])
+        np.testing.assert_array_equal(sv, valid[sl])
+        np.testing.assert_array_equal(sf, fids[sl])
+
+
+def test_dryrun_multichip_4():
+    summary = dryrun.dryrun_multichip(4, device='cpu')
+    assert summary['job_bevs'] >= 2 and summary['mesh_step_bevs'] == 4
+    assert summary['streams'] == 2 and summary['tile_vs_psum'] <= 4e-3
+
+
+def test_initialize_multihost_unconfigured_is_noop():
+    import torch.distributed as dist
+    pmesh.initialize_multihost(None)
+    assert not dist.is_initialized()

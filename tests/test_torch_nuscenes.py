@@ -17,6 +17,7 @@ Tolerances, as observed and held here:
 """
 import contextlib
 import io
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -405,6 +406,10 @@ def test_bev_ref_frame_world_is_identity(semseg_pair):
 
 
 def test_mesh_bev_param_raises(semseg_pair):
-    with pytest.raises(NotImplementedError, match='mesh'):
+    """bev_params['mesh'] rasters point-sharded (tests/test_torch_mesh*.py);
+    an accumulator built with it on a rank other than the points axis's
+    rank 0, which only serves rasters, raises before any collective."""
+    worker_rank = types.SimpleNamespace(get_local_rank=lambda axis: 1)
+    with pytest.raises(ValueError, match='rank 0 of the points axis'):
         TOracle(semseg_model=semseg_pair[1],
-                bev_params=dict(BEV_PARAMS, mesh=object()), device='cpu')
+                bev_params=dict(BEV_PARAMS, mesh=worker_rank), device='cpu')

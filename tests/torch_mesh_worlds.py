@@ -1,0 +1,466 @@
+"""Gloo worlds for the port's mesh tests (test helper; imports torch,
+numpy and the port, never JAX).
+
+``spawn_world(target, n, tmp, *args)`` starts n processes joined into a
+gloo process group by a file under ``tmp`` (no fixed port: the tests run
+in parallel), runs ``target(rank, n, tmp, *args)`` on each and joins
+them; an exception on any rank raises in the caller. Each target below
+runs one test file's port cases and saves what the file compares with
+``save``; the test reads it back with ``load``. The seeded inputs come
+from the functions below, which the test files call too.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SEM_IDXS = {'road': 0, 'car': 13, 'truck': 14, 'bus': 15, 'motorcycle': 17}
+P, M = 32, 4096
+
+
+def spawn_world(target: str, n: int, tmp, *args) -> None:
+    import torch.multiprocessing as mp
+    mp.spawn(_rank_entry, args=(n, str(tmp), target, args), nprocs=n,
+             join=True)
+
+
+def _rank_entry(rank, n, tmp, target, args):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        'gloo', init_method='file://' + os.path.join(tmp, f'init_{target}'),
+        rank=rank, world_size=n, timeout=datetime.timedelta(seconds=120))
+    try:
+        globals()[target](rank, n, tmp, *args)
+    except BaseException:
+        # The caller sees one rank's error, often a peer's lost
+        # connection; every rank's own goes to stderr. The group is
+        # destroyed only after success: the spawn ends the peers.
+        traceback.print_exc()
+        raise
+    dist.destroy_process_group()
+
+
+def save(tmp, name, obj):
+    with open(os.path.join(tmp, name + '.pkl'), 'wb') as f:
+        pickle.dump(obj, f)
+
+
+def load(tmp, name):
+    with open(os.path.join(tmp, name + '.pkl'), 'rb') as f:
+        return pickle.load(f)
+
+
+# --- seeded inputs ------------------------------------------------------
+
+def make_points(seed, m=M):
+    """The flat rows of tests/test_sharding.py: (points (m,10), valid,
+    frame ids) in 40 m around the origin, 10% dynamic, 10% invalid."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((m, 10), np.float32)
+    pts[:, 0:2] = rng.uniform(-20, 20, size=(m, 2))
+    pts[:, 2] = rng.uniform(-2, 3, size=m)
+    pts[:, 3] = rng.uniform(0, 1, size=m)
+    pts[:, 4:7] = rng.integers(0, 256, size=(m, 3))
+    pts[:, 7] = rng.choice([0, 1, 2, 13, 14], size=m)
+    pts[:, 9] = rng.choice([0.0, 1.0], size=m, p=[0.9, 0.1])
+    valid = rng.uniform(size=m) > 0.1
+    fids = rng.integers(0, 10, size=m).astype(np.int32)
+    return pts, valid, fids
+
+
+def raster_params(stream=0):
+    """Host raster parameters (numpy-valued RasterParams fields)."""
+    from pc_accumulation_lib_tpu_torch.bev import core
+    p = core.identity_params(window=(0, 9), present_frame=5 + stream)
+    return p._replace(rot_ang=0.3 * stream, trans_dx=0.5 * stream)
+
+
+def _shard(pts, valid, fids, r, n):
+    m = pts.shape[0] // n
+    sl = slice(r * m, (r + 1) * m)
+    return (torch.from_numpy(pts[sl]), torch.from_numpy(valid[sl]),
+            torch.from_numpy(fids[sl]))
+
+
+# --- tests/test_torch_mesh.py -------------------------------------------
+
+CALIB_CALLS = 6
+
+
+def mesh_cases(rank, n, tmp):
+    """Every engine on a (1, n) mesh, multi-stream on (2, n/2)."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    mesh = pmesh.make_mesh((1, n), device_type='cpu')
+    pts, valid, fids = make_points(0)
+    inst = torch.zeros(4)
+    params = raster_params()
+    shard = sharded.shard_points_to_mesh(
+        mesh, *((torch.from_numpy(pts), torch.from_numpy(valid),
+                 torch.from_numpy(fids)) if rank == 0
+                else (None, None, None)))
+    out = {'shard': [t.numpy() for t in shard]}
+
+    psum = sharded.make_sharded_raster_fn(mesh, 40.0, P, SEM_IDXS, 20., 20.,
+                                          0.5)
+    for gf in (True, False):
+        out[f'psum_{gf}'] = psum(*shard, inst, params, gf).float().numpy()
+
+    tile = sharded.make_tile_sharded_raster_fn(mesh, 40.0, P, SEM_IDXS, 20.,
+                                               20., 0.5)
+    out['tile'] = tile(*shard, inst, params, True).float().numpy()
+    packed = torch.from_numpy(params.pack())
+    out['tile_tuple'] = tile(*shard, inst, (packed[:22], packed[22:]),
+                             True).float().numpy()
+    out['tile_packed'] = tile(*shard, inst, packed, False).float().numpy()
+    tile.drain()
+    out['tile_route'] = (tile.route_peak_rows, tile.route_cap)
+
+    # mesh_impl='auto' at P = 31: 961 cells do not stripe over n ranks.
+    auto = sharded.make_mesh_raster_fn(mesh, 40.0, 31, SEM_IDXS, 20., 20.,
+                                       0.5)
+    out['auto_engine'] = type(auto).__name__
+    out['auto_31'] = auto(*shard, inst, params, True).float().numpy()
+    try:
+        sharded.make_mesh_raster_fn(mesh, 40.0, 31, SEM_IDXS, 20., 20., 0.5,
+                                    mesh_impl='tile')
+        out['tile_31'] = None
+    except ValueError as e:
+        out['tile_31'] = str(e)
+
+    over = sharded.make_tile_sharded_raster_fn(
+        mesh, 40.0, P, SEM_IDXS, 20., 20., 0.5, dest_cap_factor=0.02,
+        calibrate_dest_cap=0)
+    over(*shard, inst, params, True)
+    try:
+        over.drain()
+        out['overflow'] = None
+    except sharded.TileRouteOverflow as e:
+        out['overflow'] = (str(e), over.route_peak_rows, over.route_cap)
+
+    cal = sharded.make_tile_sharded_raster_fn(
+        mesh, 40.0, P, SEM_IDXS, 20., 20., 0.5, dest_cap_factor=4.0,
+        calibrate_dest_cap=2.0)
+    seq, stacks = [], []
+    for _ in range(CALIB_CALLS):
+        stacks.append(cal(*shard, inst, params, True).float().numpy())
+        seq.append((cal.dest_cap_factor, cal.route_cap, cal.route_peak_rows))
+    cal.drain()
+    seq.append((cal.dest_cap_factor, cal.route_cap, cal.route_peak_rows))
+    out['calib'] = seq
+    out['calib_stacks'] = (stacks[0], stacks[-1])
+
+    if n % 2 == 0 and n >= 4:
+        mesh2 = pmesh.make_mesh((2, n // 2), device_type='cpu')
+        ms = sharded.make_multistream_raster_fn(mesh2, 40.0, P, SEM_IDXS,
+                                                20., 20., 0.5)
+        d = pmesh.axis_rank(mesh2, 'data')
+        r = pmesh.axis_rank(mesh2, 'points')
+        s_pts, s_valid, s_fids = _shard(*make_points(10 + d), r, n // 2)
+        out['multistream'] = (d, ms(
+            s_pts[None], s_valid[None], s_fids[None], torch.zeros((1, 4)),
+            torch.from_numpy(raster_params(d).pack())[None],
+            True).float().numpy())
+    save(tmp, f'mesh_r{rank}', out)
+
+
+# --- tests/test_torch_mesh_accum.py -------------------------------------
+
+ACCUM_SEQS = ('2013_05_28_drive_0000_sync', '2013_05_28_drive_0002_sync',
+              '2013_05_28_drive_0003_sync')
+STEP_FRAMES = 6
+JOB_FRAMES = 12
+STEP_BEV = dict(type='sem', view_size=40, pixel_size=32, int_scaler=20.,
+                int_sep_scaler=20., int_mid_threshold=0.5,
+                max_trans_radius=2.0, zoom_thresh=0.05, do_warp=True)
+CLASSIC_BEV = dict(type='sem', view_size=40, pixel_size=32, int_scaler=20.,
+                   int_sep_scaler=20., int_mid_threshold=0.5)
+JOB_BEV = {'type': 'sem', 'view_size': 30, 'pixel_size': 64,
+           'max_trans_radius': 2.0, 'zoom_thresh': 0.05, 'do_warp': True,
+           'int_scaler': 20., 'int_sep_scaler': 20.,
+           'int_mid_threshold': 0.5, 'height_filter': None}
+
+
+def step_frames():
+    """(img, pc, GT trainIds) of test_sharding.py's step() drive."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.kitti360 import (
+        ID2TRAINID, conv_semantic_ids)
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    stream = SyntheticKitti360Stream(n_frames=STEP_FRAMES, step=2.0,
+                                     lidar_range=20.0, seed=3,
+                                     points_per_frame=2500)
+    out = []
+    for i in range(STEP_FRAMES):
+        img, pc, sem_gt = stream.frame(i)
+        out.append((img, pc, conv_semantic_ids(sem_gt.astype(np.int64),
+                                               ID2TRAINID)))
+    return out
+
+
+def accum_kwargs(cfg):
+    return dict(accum_cfg=cfg.AccumConfig(max_points_per_frame=8192,
+                                          max_frames=16, compact_cap=49152),
+                icp_cfg=cfg.ICPConfig(max_downsampled=1024, num_iters=12),
+                seed=0)
+
+
+def job_kwargs(cfg, out_dir, manifest_path=None, **kw):
+    return dict(
+        semseg_model=None, use_gt_sem=True, sequences=list(ACCUM_SEQS),
+        start_idxs=[0] * 3, end_idxs=[JOB_FRAMES] * 3,
+        accum_horizon_dist=16.0,
+        sampling=cfg.SamplingConfig(bev_horizon_dist=6.0,
+                                    bev_dist_between_samples=2.0,
+                                    bevs_per_sample=2),
+        output=cfg.OutputConfig(output_dir=out_dir, subdir_size=4,
+                                viz_to_disk=False, async_io=False),
+        accum_cfg=cfg.AccumConfig(max_points_per_frame=8192, max_frames=32),
+        icp_cfg=cfg.ICPConfig(max_downsampled=1024, num_iters=12), seed=0,
+        manifest_path=manifest_path, **kw)
+
+
+def _calib():
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        make_calib)
+    _, H_velo_cam, P_cam_frame = make_calib()
+    return dict(h_velo_cam=H_velo_cam, p_cam_frame=P_cam_frame,
+                p_velo_frame=P_cam_frame @ H_velo_cam)
+
+
+def _mesh_accum(mesh, bev):
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.accum.kitti360 import (
+        Kitti360SemanticPointCloudAccumulator)
+    return Kitti360SemanticPointCloudAccumulator(
+        200., _calib(), 1e3, None, cfg.DEFAULT_SEMSEG_FILTERS,
+        cfg.DEFAULT_SEM_IDXS, True, dict(bev, mesh=mesh), device='cpu',
+        **accum_kwargs(cfg))
+
+
+class Crash(Exception):
+    pass
+
+
+def accum_cases(rank, n, tmp, root, runner_root):
+    """step() and generate_bev() on a (1, n) mesh, run() and the
+    scene-sharded job through the runner; rank 0 saves."""
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.bev.sem_bev import SemBEVGenerator
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    from pc_accumulation_lib_tpu_torch.runners import kitti360_bev_gen as kr
+    mesh = pmesh.make_mesh((1, n), device_type='cpu')
+    ctl = sharded.is_controller(mesh)
+    out = {}
+
+    # step() and generate_bev() through one controller.
+    if ctl:
+        try:
+            frames = step_frames()
+            a = _mesh_accum(mesh, STEP_BEV)
+            a.integrate([frames[0]])
+            steps = []
+            for f in frames[1:]:
+                bevs = a.step([f], bev_num=2, gen_future=True)
+                steps.append((bevs, np.array(a.poses), a.window_start))
+            a.sem_bev_generator.close()
+            out['step'] = steps
+            g = _mesh_accum(mesh, CLASSIC_BEV)
+            for f in frames:
+                g.integrate([f])
+            out['generate_bev'] = g.generate_bev(present_idx=3, bev_num=1,
+                                                 gen_future=True)
+            g.sem_bev_generator.close()
+        finally:
+            sharded.shutdown_mesh_workers(mesh)
+    else:
+        sharded.serve_mesh_rasters(mesh)
+
+    # run() at the runner's default BEV parameters.
+    runner_out = os.path.join(tmp, 'runner')
+    out['run'] = kr.run(runner_root, output=cfg.OutputConfig(
+        runner_out, viz_to_disk=False), device='cpu',
+        bev_params=dict(kr.DEFAULT_BEV_PARAMS, mesh=mesh),
+        **runner_kwargs(cfg))
+
+    # The scene-sharded job: uninterrupted; crashed after the first
+    # sample of the second unit, then resumed; two shards.
+    def job(name, **kw):
+        return kr.run_sharded(root, bev_params=dict(JOB_BEV, mesh=mesh),
+                              device='cpu', **job_kwargs(
+                                  cfg, os.path.join(tmp, name),
+                                  os.path.join(tmp, name + '.jsonl'), **kw))
+
+    out['job'] = job('job')
+    seen = [0]
+
+    def crash(bev, path):
+        seen[0] += 1
+        if seen[0] == out['job_unit0'] + 1:
+            raise Crash(path)
+
+    if ctl:
+        from pc_accumulation_lib_tpu_torch.parallel.manifest import (
+            CompletionManifest)
+        out['job_unit0'] = int(CompletionManifest(os.path.join(
+            tmp, 'job.jsonl')).get(ACCUM_SEQS[0])['bevs'])
+    try:
+        job('crash', on_bev=crash)
+        out['crashed'] = False
+    except Crash:
+        out['crashed'] = True
+    out['crash_files'] = seen[0]
+    out['resume'] = job('crash')
+    out['shards'] = [job('sharded', shard_idx=i, num_shards=2)
+                     for i in range(2)]
+
+    # A TileRouteOverflow from close() leaves the unit pending.
+    if ctl:
+        orig_close = SemBEVGenerator.close
+
+        def close_detects_overflow(self):
+            orig_close(self)
+            raise sharded.TileRouteOverflow('simulated overflow')
+
+        SemBEVGenerator.close = close_detects_overflow
+    try:
+        job('overflow')
+        out['overflow'] = None
+    except sharded.TileRouteOverflow as e:
+        out['overflow'] = str(e)
+    if ctl:
+        SemBEVGenerator.close = orig_close
+        save(tmp, 'accum', out)
+
+
+def runner_kwargs(cfg):
+    """The port's test_torch_runner.py sizes."""
+    return dict(use_gt_sem=True, sequences=[ACCUM_SEQS[0]], start_idxs=[0],
+                end_idxs=[14], accum_horizon_dist=30.0,
+                sampling=cfg.SamplingConfig(8.0, 1.0, 2),
+                accum_cfg=cfg.AccumConfig(max_points_per_frame=8192,
+                                          max_frames=24),
+                icp_cfg=cfg.ICPConfig(max_downsampled=512, num_iters=8),
+                seed=0)
+
+
+# --- tests/test_torch_mesh_train.py -------------------------------------
+
+TRAIN_STAGES = (1, 1, 1, 1)
+TRAIN_HW = (16, 32)
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 3
+
+
+def train_batch(seed):
+    """The global batch of step ``seed``: 2 images (one per data rank)."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (2, *TRAIN_HW, 3)).astype(np.float32)
+    labels = rng.integers(0, 19, (2, *TRAIN_HW)).astype(np.int32)
+    labels[0, :3] = 255
+    return images, labels
+
+
+def train_dp_cases(rank, n, tmp, named_path, data_glob):
+    """Data-parallel steps on a (n, 1) mesh from the carried weights, and
+    train_semseg.run over the world; each rank saves."""
+    from pc_accumulation_lib_tpu_torch.models import train as ttrain
+    from pc_accumulation_lib_tpu_torch.models.semseg import (
+        load_named_tensors)
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.runners import train_semseg as trun
+    mesh = pmesh.make_mesh((n, 1), ('data', 'model'), 'cpu')
+    state, step = ttrain.make_train_setup(
+        lr=TRAIN_LR, stage_sizes=TRAIN_STAGES, compute_dtype=torch.float32,
+        device='cpu', mesh=mesh)
+    with np.load(named_path) as d:
+        load_named_tensors(state.model, dict(d))
+    out = {'losses': [], 'after': []}
+    for i in range(TRAIN_STEPS):
+        images, labels = train_batch(i)
+        state, loss = step(state, torch.from_numpy(images),
+                           torch.from_numpy(labels))
+        out['losses'].append(float(loss))
+        if i == 0:
+            out['grads'] = {k: p.grad.numpy().copy()
+                            for k, p in state.model.named_parameters()}
+        if i in (0, TRAIN_STEPS - 1):
+            out['after'].append({k: v.numpy().copy() for k, v in
+                                 state.model.state_dict().items()})
+    try:
+        step(state, *(torch.from_numpy(a[:1]) for a in train_batch(9)))
+        out['odd_batch'] = None
+    except ValueError as e:
+        out['odd_batch'] = str(e)
+    ckpt_dir = os.path.join(tmp, 'ckpt')
+    st, losses = trun.run(data_glob, steps=3, batch_size=2,
+                          ckpt_dir=ckpt_dir, ckpt_every=2,
+                          stage_sizes=TRAIN_STAGES, log_every=3,
+                          device='cpu')
+    out['run_losses'] = losses
+    out['run_step'] = st.step
+    out['run_params'] = {k: v.numpy().copy()
+                         for k, v in st.model.state_dict().items()}
+    save(tmp, f'dp_r{rank}', out)
+
+
+PP_MICRO, PP_MB, PP_HW, PP_C = 6, 2, (8, 16), 16
+
+
+def pipeline_batch():
+    rng = np.random.default_rng(5)
+    xs = rng.normal(size=(PP_MICRO, PP_MB, *PP_HW, PP_C)).astype(np.float32)
+    ys = rng.normal(size=(PP_MICRO, PP_MB, *PP_HW, PP_C)).astype(np.float32)
+    return xs, ys
+
+
+def train_pp_cases(rank, n, tmp, stage_path, data_glob):
+    """GPipe over an n-stage ('pp',) mesh from the carried stage weights:
+    forward, gradients, three pipelined train steps; the TP refusals."""
+    from pc_accumulation_lib_tpu_torch.models import train as ttrain
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import pipeline as pp
+    from pc_accumulation_lib_tpu_torch.runners import train_semseg as trun
+    mesh = pp.make_pipeline_mesh(n, 'cpu')
+    with np.load(stage_path) as d:
+        weights = pp.stage_weights_from_flax(d['kernel'], d['bias'])
+    state, step = ttrain.make_pipelined_train_setup(
+        mesh, microbatch=PP_MB, hw=PP_HW, channels=PP_C, lr=1e-2,
+        stage_weights=weights, device='cpu')
+    xs, ys = (torch.from_numpy(a) for a in pipeline_batch())
+
+    def stage_fn(conv, x):
+        return x + torch.relu(conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+
+    run = pp.gpipe_apply(stage_fn, mesh)
+    ys_pp = run(state.model, xs)
+    loss = torch.mean((ys_pp - ys) ** 2)
+    loss.backward()
+    out = {'forward': ys_pp.detach().numpy(),
+           'grad': {k: p.grad.numpy().copy()
+                    for k, p in state.model.named_parameters()},
+           'losses': []}
+    for _ in range(3):
+        state, loss = step(state, xs, ys)
+        out['losses'].append(float(loss))
+    try:
+        trun.run(data_glob, steps=1, batch_size=2, dp=2, device='cpu',
+                 stage_sizes=TRAIN_STAGES)
+        out['dp_below_world'] = None
+    except NotImplementedError as e:
+        out['dp_below_world'] = str(e)
+    tp = pmesh.make_mesh((n // 2, 2), ('data', 'model'), 'cpu')
+    try:
+        ttrain.make_train_setup(stage_sizes=TRAIN_STAGES, device='cpu',
+                                mesh=tp)
+        out['tp'] = None
+    except NotImplementedError as e:
+        out['tp'] = str(e)
+    save(tmp, f'pp_r{rank}', out)
