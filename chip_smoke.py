@@ -23,7 +23,11 @@ full-width semseg model as an .onnx and a weight file and loads each
 back, trains it at 376x1408 through the training runner (step time,
 FLOP/s, peak memory, a checkpoint restored bit-equal), drives the two
 point-cloud export runners, and checks train steps on the GPU against
-the CPU at test size.
+the CPU at test size. It drives step() and the oracle accumulator again
+on the JAX bench's yuv420h / quantized upload wires, the KITTI-360 runner
+with the RGB BEV type, the legacy BEV pipeline on the runner's last
+window (card against CPU), and the mesh paths in spawned processes (two
+ranks, and step() on four) over gloo on the one card.
 
     python3 chip_smoke.py
 
@@ -111,6 +115,10 @@ ORACLE_BEV = dict(type='sem', view_size=80, pixel_size=256, int_scaler=1.,
 # steps must come out at the stream's 2 m within 0.4 m.
 NUSC_RUNNER_FRAMES, NUSC_ICP_FRAMES = 100, 12
 STEP_ATOL = 0.4
+# Camera wire bytes per pixel (ops/imgcodec.py); the JAX bench's own runs
+# upload 'yuv420h' images and 'quantized' points (wire_path,
+# oracle_wire_path).
+WIRE_BYTES_PER_PIXEL = {'rgb8': 3, 'yuv420': 1.5, 'yuv420h': 0.75}
 
 # Semseg training at full width (runners/train_semseg.run): the
 # full-depth ResNet-50 dilated FCN on a shard of 16 rendered 376x1408
@@ -324,6 +332,17 @@ def _median_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def _median_ms_host(fn, reps=10):
+    """Median host-clock ms of ``fn`` (host work)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        ts = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - ts) * 1e3)
+    return statistics.median(times)
+
+
 def _bound(keyed_rows, row_bytes, groups, n_weights, n_values):
     """Bytes, operations and the least time of one stats call."""
     nbytes = keyed_rows * row_bytes + groups * 4 * (n_weights + 1
@@ -420,10 +439,11 @@ def _raw_rows(ss, case):
                                    nsplit, buf)
 
 
-def _device_ops(fn, calls=5, tries=3):
+def _device_ops(fn, calls=5, tries=10):
     """The device operations (kernels, copies, sets) one call of ``fn``
     runs, from torch.profiler over ``calls`` calls, tried again when it
-    records no device activity at all: (operations per call, their
+    records no device activity at all (a whole profiling session of the
+    card sometimes comes back empty): (operations per call, their
     names)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -713,7 +733,7 @@ def phase_kernel_on_main_path(raster_in):
 
 
 def _make_accum(dev, semseg, stream_cfg, accum_cfg, icp_cfg,
-                horizon, bev, use_gt_sem, seed=0):
+                horizon, bev, use_gt_sem, seed=0, img_transfer='rgb8'):
     from pc_accumulation_lib_tpu_torch import config as cfg
     from pc_accumulation_lib_tpu_torch.accum.kitti360 import (
         Kitti360SemanticPointCloudAccumulator)
@@ -727,7 +747,7 @@ def _make_accum(dev, semseg, stream_cfg, accum_cfg, icp_cfg,
         cfg.DEFAULT_SEM_IDXS, use_gt_sem, bev,
         accum_cfg=cfg.AccumConfig(**accum_cfg),
         icp_cfg=cfg.ICPConfig(**icp_cfg), seed=seed,
-        transfer_dtype='quantized', img_transfer='rgb8', device=dev)
+        transfer_dtype='quantized', img_transfer=img_transfer, device=dev)
 
 
 def _check_bevs(bevs, P):
@@ -749,9 +769,11 @@ def _check_bevs(bevs, P):
     return float(np.mean(occ))
 
 
-def phase_main_path(dev):
-    """9 bench-configuration steps. Also returns the sorted rows the kernel
-    got in the last step's first raster, and each step's samples' maps."""
+def phase_main_path(dev, img_transfer='rgb8', name='main_path'):
+    """9 bench-configuration steps, the camera image on ``img_transfer``'s
+    wire (the points at 7 B/point). Also returns the sorted rows the
+    kernel got in the last step's first raster, each step's samples'
+    maps, and the frames and the accumulator."""
     from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
         SyntheticKitti360Stream)
     from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
@@ -772,7 +794,7 @@ def phase_main_path(dev):
     frames = [stream.frame(i) for i in range(N_STEPS + 1)]
     semseg = SemSegTorch(dev, seed=0)
     accum = _make_accum(dev, semseg, STREAM, ACCUM, ICP, HORIZON,
-                        BEV, use_gt_sem=False)
+                        BEV, use_gt_sem=False, img_transfer=img_transfer)
     torch.cuda.reset_peak_memory_stats()
     ss.segmented_stats_words.launches = 0
     accum.integrate([frames[0]])
@@ -806,8 +828,80 @@ def phase_main_path(dev):
                max_live_rows=accum.max_live_rows,
                window_frames=len(accum.poses),
                occupied_cell_fraction=occ)
-    emit('main_path', t0, **res)
-    return res, raster_in, kept
+    if name is not None:
+        emit(name, t0, **res)
+    return res, raster_in, kept, frames, accum
+
+
+def _part_bytes(parts):
+    """{name: bytes} of one uploaded observation's device tensors."""
+    return {k: v.numel() * v.element_size() for k, v in parts.items()}
+
+
+def _upload_ms(accum, frames):
+    """Median host ms of upload_obs (the wire encode, the pinned staging
+    copy and the host -> device copy) through a synchronize, per frame."""
+    times = []
+    for f in frames:
+        ts = time.perf_counter()
+        accum.upload_obs(f)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - ts) * 1e3)
+    return statistics.median(times)
+
+
+def _fidelity(got, ref, prefixes=('rgb', 'intensity')):
+    """Max and mean abs difference of the maps whose key starts with one
+    of ``prefixes``, over two step runs' samples."""
+    out = {}
+    for p in prefixes:
+        d = [np.abs(a[k].astype(np.float32) - b[k].astype(np.float32))
+             for step_a, step_b in zip(got, ref)
+             for a, b in zip(step_a, step_b) for k in a if k.startswith(p)]
+        out[p] = dict(max_abs=float(max(x.max() for x in d)),
+                      mean_abs=float(np.mean([x.mean() for x in d])))
+    return out
+
+
+def phase_wire_path(dev, main_bevs, frames, rgb8_accum):
+    """main_path's drive with the camera image on the JAX bench's wire
+    ('yuv420h', the points at 7 B/point as before): encoded on the host,
+    decoded on the card at the head of each frame step. Holds the card's
+    decode against the CPU decode of the same parts on one frame (the CPU
+    tests hold that decode exactly to the JAX package's); reports the
+    bytes of each wire part per frame on both wires, the host encode and
+    the upload ms, and how far the rgb and intensity maps move from
+    main_path's rgb8 samples at the same seed."""
+    from pc_accumulation_lib_tpu_torch.ops import imgcodec
+    t0 = time.perf_counter()
+    res, _, bevs, _, accum = phase_main_path(dev, img_transfer='yuv420h',
+                                             name=None)
+    img = np.asarray(frames[1][0])[..., :3].astype(np.uint8)
+    enc_ms = _median_ms_host(lambda: imgcodec.encode_wire(img, 'yuv420h'))
+    parts = {}
+    for name, acc in (('rgb8', rgb8_accum), ('yuv420h', accum)):
+        dob = acc.upload_obs(frames[1])
+        aux = dob.aux if isinstance(dob.aux, tuple) else (dob.aux,)
+        parts[name] = _part_bytes(dict(
+            points=dob.pc_pad, valid=dob.valid,
+            **{f'image{i}': a for i, a in enumerate(aux)}))
+    h, w = STREAM['img_hw']
+    for wire, p in parts.items():
+        check(sum(v for k, v in p.items() if k.startswith('image'))
+              == h * w * WIRE_BYTES_PER_PIXEL[wire], (wire, p))
+    gpu = imgcodec.decode_wire(dob.aux)
+    cpu = imgcodec.decode_wire(tuple(a.cpu() for a in dob.aux))
+    decode_err = float((gpu.cpu() - cpu).abs().max())
+    check(decode_err <= 1e-4, decode_err)
+    res.update(wire=('yuv420h', 'quantized'), bytes_per_frame=parts,
+               encode_ms_per_frame=enc_ms,
+               upload_ms_per_frame={
+                   'rgb8': _upload_ms(rgb8_accum, frames[1:]),
+                   'yuv420h': _upload_ms(accum, frames[1:])},
+               decode_vs_cpu_max_abs=decode_err,
+               vs_rgb8_main_path=_fidelity(bevs, main_bevs))
+    emit('wire_path', t0, **res)
+    return res
 
 
 def _runner_accum(dev, semseg, stream_cfg, bev, use_gt_sem, **kw):
@@ -853,16 +947,19 @@ def _check_sample(b, P):
               (s, [t.shape for t in trajs]))
 
 
-def phase_runner_path(dev, words_kernel=True, reference=None):
+def phase_runner_path(dev, words_kernel=True, reference=None,
+                      bev_type='sem'):
     """The dataset runner's sampling_loop at run()'s defaults on 120 frames
     of the bench stream: full-depth ResNet-50, every sample's classic
     raster over the whole 256 x 131,072-row buffer. The stats stage takes
     the words route (kernel 1), as run() does; with ``words_kernel`` False
     every raster of the loop takes the unpacked route (kernel 2) instead.
+    ``bev_type`` 'rgb' builds the RGB generator (runner --bev_type rgb).
     ``reference``: samples of an earlier run, which these must match
-    (same files and keys, maps under the GPU-vs-CPU rule). Returns the
-    result, the samples read back, the (c2, packed, packed2, ...) one
-    raster gave the stats stage, and one raster's inputs."""
+    (same files and keys, maps under the GPU-vs-CPU rule; for 'rgb' the
+    rgb maps exactly). Returns the result, the samples read back, the
+    (c2, packed, packed2, ...) one raster gave the stats stage, one
+    raster's inputs and the last window's points (_legacy_window)."""
     from pc_accumulation_lib_tpu_torch import config as cfg
     from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
         SyntheticKitti360Stream)
@@ -876,7 +973,8 @@ def phase_runner_path(dev, words_kernel=True, reference=None):
     t0 = time.perf_counter()
     stream = SyntheticKitti360Stream(n_frames=RUNNER_FRAMES, **STREAM)
     accum = _runner_accum(dev, SemSegTorch(dev, seed=0), STREAM,
-                          dict(kr.DEFAULT_BEV_PARAMS), use_gt_sem=False)
+                          dict(kr.DEFAULT_BEV_PARAMS, type=bev_type),
+                          use_gt_sem=False)
     gen = accum.sem_bev_generator
     # frames: (start of its integrate, frames it evicted) per frame;
     # sampled: the frame index of each stats-stage call (one per sample).
@@ -928,6 +1026,7 @@ def phase_runner_path(dev, words_kernel=True, reference=None):
         launches2 = ss.segmented_stats.launches
         peak = torch.cuda.max_memory_allocated()
         samples = _read_samples(out_dir)
+        png = _png_roundtrip(samples, out_dir) if bev_type == 'rgb' else None
     n = stats['bevs']
     check(stats['frames'] == RUNNER_FRAMES, stats)
     check(n >= RUNNER_MIN_SAMPLES,
@@ -937,7 +1036,7 @@ def phase_runner_path(dev, words_kernel=True, reference=None):
     expect = (n, 0) if words_kernel else (0, n)
     check((launches, launches2) == expect, (launches, launches2, n))
     for b in samples.values():
-        _check_sample(b, P)
+        (_check_rgb_sample if bev_type == 'rgb' else _check_sample)(b, P)
     phases = {k: dict(total_s=timer.totals[k], n=timer.counts[k])
               for k in timer.totals}
     # Steady state: from the first frame whose integrate evicts (the
@@ -963,14 +1062,153 @@ def phase_runner_path(dev, words_kernel=True, reference=None):
                max_memory_allocated_bytes=peak,
                async_writer_native=AsyncPickleWriter().native,
                files=sorted(samples)[:3])
-    if reference is not None:
+    if bev_type == 'rgb':
+        res.update(png_bytes=png, rgb_vs_runner_path_max_abs=_rgb_equal(
+            samples, reference))
+    elif reference is not None:
         mism, err = _map_mismatch(samples, reference)
         res.update(vs_words_route_max_cell_mismatch_fraction=mism,
                    vs_words_route_max_abs=err)
         check(mism < MAP_MISMATCH, mism)
-    emit('runner_path' if words_kernel else 'runner_path_unpacked', t0,
+    emit('rgb_runner_path' if bev_type == 'rgb' else
+         'runner_path' if words_kernel else 'runner_path_unpacked', t0,
          **res)
-    return res, samples, stats_in, raster_in
+    window = (_legacy_window(accum) if words_kernel and bev_type == 'sem'
+              else None)
+    return res, samples, stats_in, raster_in, window
+
+
+def _check_rgb_sample(b, P):
+    """An RGB sample: the present and future (3,P,P) float16 rgb maps,
+    finite and in [0, 1], and the (N,3) pixel-space poses."""
+    check(set(b) == {'rgb_present', 'rgb_future', 'poses_present',
+                     'poses_future'}, sorted(b))
+    for k in ('rgb_present', 'rgb_future'):
+        v = b[k].astype(np.float32)
+        check(b[k].dtype == np.float16 and v.shape == (3, P, P),
+              (k, b[k].dtype, v.shape))
+        check(np.isfinite(v).all() and v.min() >= 0 and v.max() <= 1,
+              (k, v.min(), v.max()))
+    for k in ('poses_present', 'poses_future'):
+        check(b[k].ndim == 2 and b[k].shape[1] == 3, (k, b[k].shape))
+
+
+def _rgb_equal(samples, reference):
+    """The RGB samples' rgb maps against the semantic run's samples of
+    the same files: exactly equal; returns the max abs difference."""
+    check(sorted(samples) == sorted(reference),
+          (sorted(samples)[:3], sorted(reference)[:3]))
+    err = 0.0
+    for f, b in samples.items():
+        for k in ('rgb_present', 'rgb_future'):
+            check(np.array_equal(b[k], reference[f][k]), (f, k))
+            err = max(err, float(np.abs(b[k].astype(np.float32)
+                                        - reference[f][k].astype(
+                                            np.float32)).max()))
+    return err
+
+
+def _png_roundtrip(samples, out_dir):
+    """Each RGB sample's present and future rgb maps written beside its
+    pkl.gz as one PNG (PIL; the generator's viz_bev draws with
+    matplotlib, which this machine may lack) and read back equal to the
+    maps x 255, rounded. Returns the PNG bytes written."""
+    from PIL import Image
+    total = 0
+    for f, b in samples.items():
+        img = np.concatenate([b['rgb_present'], b['rgb_future']], axis=2)
+        img = np.rint(img.astype(np.float32).transpose(1, 2, 0) * 255)
+        img = img.astype(np.uint8)
+        path = os.path.join(out_dir, f.replace('.pkl.gz', '.png'))
+        Image.fromarray(img).save(path)
+        total += os.path.getsize(path)
+        check(np.array_equal(np.asarray(Image.open(path)), img), path)
+    return total
+
+
+# The legacy pipeline on the runner's last window: every in-window point
+# within LEGACY_RADIUS m of the middle frame's pose (the farthest an
+# augmented 80 m view reaches: its corner at 1.05 zoom, 59.4 m, plus the
+# 3 m translation), in that pose's frame, split there into past and
+# future; gen_view at the runner's 80 m / 256 px and gen_aug_view at the
+# step() bench's augmentation limits.
+LEGACY_RADIUS = 64.0
+LEGACY_AUG = dict(max_translation_radius=3.0, zoom_threshold=0.05,
+                  view_size=80.0, pixel_size=256)
+# The probmaps (from counts) and the rgb medians are exact on both
+# devices. The mean maps divide float32 sums that the card adds in
+# another order (atomics), and a last-bit difference can move the float16
+# rounding by one step: each cell is held to one float16 step at its own
+# magnitude.
+LEGACY_SUMMED = ('elevmap', 'intensitymap')
+
+
+def phase_legacy_path(dev, window):
+    """legacy.gen_view and gen_aug_view on the runner's last window, on
+    the card and on the CPU from the same numpy generator seed: the maps
+    as LEGACY_SUMMED says, the poses equal. Reports the card's ms per
+    call (the second of two calls) and the CPU's (one call)."""
+    from pc_accumulation_lib_tpu_torch.bev import legacy
+    t0 = time.perf_counter()
+    past, future, poses_p, poses_f = window
+    inputs = dict(LEGACY_AUG, pc_present=past, pc_future=future,
+                  poses_present=poses_p, poses_future=poses_f)
+    calls = {
+        'gen_view': lambda rng, d: legacy.gen_view(
+            past, future, poses_p, poses_f, 0.3, 1.0, -1.0, 1.0,
+            LEGACY_AUG['view_size'], LEGACY_AUG['pixel_size'], rng=rng,
+            device=d),
+        'gen_aug_view': lambda rng, d: legacy.gen_aug_view(
+            inputs, rng=rng, device=d)}
+    res = dict(rows_past=len(past), rows_future=len(future),
+               pixel_size=LEGACY_AUG['pixel_size'])
+    for name, call in calls.items():
+        out, ms = {}, {}
+        for tag, d, calls_n in (('card', dev, 2),
+                                ('cpu', torch.device('cpu'), 1)):
+            for _ in range(calls_n):
+                ts = time.perf_counter()
+                out[tag] = call(np.random.default_rng(0), d)
+                _sync(d)
+                ms[tag] = (time.perf_counter() - ts) * 1e3
+        err, differ = 0.0, 0
+        for k in legacy._KEYS:
+            a, b = (out[t][k].astype(np.float32) for t in ('card', 'cpu'))
+            check(np.isfinite(a).all(), (name, k))
+            d = np.abs(a - b)
+            if k.startswith(LEGACY_SUMMED):
+                step = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(
+                    np.float16)).astype(np.float32)
+                check((d <= step).all(), (name, k, float(d.max())))
+            else:
+                check(not d.any(), (name, k, float(d.max())))
+            err, differ = max(err, float(d.max())), differ + int((d > 0).sum())
+        for k in ('poses_past', 'poses_future'):
+            check(np.array_equal(out['card'][k], out['cpu'][k]), (name, k))
+        check((out['card']['gridmap_past_road'] != 0.5).mean() > 0.01, name)
+        res[name] = dict(max_abs_vs_cpu=err, cells_differing=differ,
+                         card_ms=ms['card'], cpu_ms=ms['cpu'])
+    emit('legacy_path', t0, **res)
+    return res
+
+
+def _legacy_window(accum):
+    """(past rows, future rows, past poses, future poses) of the
+    accumulator's window, numpy, for the legacy pipeline."""
+    pts = accum.state.points.cpu().numpy().reshape(-1, 10)
+    valid = accum.state.valid.cpu().numpy().reshape(-1)
+    fids = np.repeat(accum.state.frame_ids.cpu().numpy(),
+                     accum.state.points.shape[1])
+    mid = len(accum.poses) // 2
+    T = np.linalg.inv(accum.T_world_velo[mid])
+    keep = valid & (fids >= accum.window_start)
+    rows, fids = pts[keep].astype(np.float64), fids[keep]
+    rows[:, :3] = rows[:, :3] @ T[:3, :3].T + T[:3, 3]
+    near = np.hypot(rows[:, 0], rows[:, 1]) < LEGACY_RADIUS
+    rows, fids = rows[near], fids[near]
+    past = fids < accum.window_start + mid
+    poses = accum._poses_ref(T)
+    return rows[past], rows[~past], poses[:mid], poses[mid:]
 
 
 def _map_mismatch(a, b):
@@ -1217,13 +1455,14 @@ def _check_tracking(accum):
     return dict(moving_car_dyn=moving, parked_car_dyn=parked)
 
 
-def phase_oracle_path(dev):
+def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
+                      name='oracle_path'):
     """The NuScenes oracle-pose accumulator at the JAX bench's oracle
-    configuration: per frame the next frame's upload, integrate (6-camera
-    semseg, paint, insert, tracking, the dyn-table update) and
-    generate_bev of the previous pose, whose samples are harvested one
-    frame later. Returns the result and the stats-stage inputs of the
-    last raster."""
+    configuration, on the given camera and point wires: per frame the
+    next frame's upload, integrate (wire decode, 6-camera semseg, paint,
+    insert, tracking, the dyn-table update) and generate_bev of the
+    previous pose, whose samples are harvested one frame later. Returns
+    the result and the stats-stage inputs of the last raster."""
     from pc_accumulation_lib_tpu_torch import config as cfg
     from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
         NuScenesOracleSemanticPointCloudAccumulator)
@@ -1240,7 +1479,9 @@ def phase_oracle_path(dev):
         semseg_model=semseg, semseg_filters=NUSCENES_FILTERS,
         bev_params=dict(ORACLE_BEV), loc='synth', get_gt_lanes=True,
         gt_lane_poses=_oracle_lane(stream, ORACLE_FRAMES),
-        accum_cfg=cfg.AccumConfig(**ORACLE_ACCUM), seed=0, device=dev)
+        accum_cfg=cfg.AccumConfig(**ORACLE_ACCUM), seed=0,
+        img_transfer=img_transfer, transfer_dtype=transfer_dtype,
+        device=dev)
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         for f in frames[:ORACLE_WARMUP]:
@@ -1336,13 +1577,50 @@ def phase_oracle_path(dev):
                                  for f in frames[ORACLE_WARMUP::4]],
                rows_per_raster=accum.state.valid.numel(),
                max_memory_allocated_bytes=peak, **tracking)
-    emit('oracle_path', t0, **res)
+    dob = accum.upload_obs(frames[-1])
+    res.update(wire=(img_transfer, transfer_dtype),
+               bytes_per_frame=_part_bytes(dict(
+                   points=dob.pc_pad, valid=dob.valid, cam_idx=dob.cam_idx,
+                   **{f'image{i}': p for i, p in enumerate(dob.imgs)})),
+               upload_ms_per_frame=_upload_ms(accum, frames[-4:]))
+    wire_bytes = res['bytes_per_frame']
+    h, w = ORACLE_STREAM['img_hw']
+    check(sum(v for k, v in wire_bytes.items() if k.startswith('image'))
+          == 6 * h * w * WIRE_BYTES_PER_PIXEL[img_transfer], wire_bytes)
+    check(wire_bytes['points'] == ORACLE_ACCUM['max_points_per_frame']
+          * (13 if transfer_dtype == 'quantized' else 28), wire_bytes)
+    if img_transfer != 'rgb8':
+        res['icp_frame'] = _icp_frame_on_wire(dev, semseg, stream,
+                                              img_transfer, transfer_dtype)
+    emit(name, t0, **res)
     return res, stats_in
 
 
-def _nuscenes_runner_accum(dev, semseg, oracle):
+def _icp_frame_on_wire(dev, semseg, stream, img_transfer, transfer_dtype):
+    """The NuScenes runner's ICP accumulator on the given wires: two
+    frames (the second registers against the first) and one sample; the
+    step must come out at the stream's 2 m within STEP_ATOL."""
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.runners import nuscenes_bev_gen as nr
+    icp = _nuscenes_runner_accum(dev, semseg, oracle=False,
+                                 img_transfer=img_transfer,
+                                 transfer_dtype=transfer_dtype)
+    ss.segmented_stats_words.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        for i in range(2):
+            icp.integrate([stream.frame(i)])
+        bev = icp.generate_bev(present_idx=1, bev_num=1, gen_future=True)[0]
+    step = float(np.linalg.norm(np.diff(icp.get_pose(), axis=0)))
+    check(abs(step - stream.step) <= STEP_ATOL, step)
+    launches = ss.segmented_stats_words.launches
+    check(launches == 1, launches)
+    _check_sample(bev, nr.DEFAULT_BEV_PARAMS['pixel_size'])
+    return dict(step_m=step, launches=launches)
+
+
+def _nuscenes_runner_accum(dev, semseg, oracle, **wires):
     """The accumulator as the NuScenes runner's run() builds it, at its
-    defaults."""
+    defaults (``wires``: img_transfer and transfer_dtype)."""
     from pc_accumulation_lib_tpu_torch import config as cfg
     from pc_accumulation_lib_tpu_torch.accum.nuscenes import (
         NuScenesSemanticPointCloudAccumulator)
@@ -1353,10 +1631,10 @@ def _nuscenes_runner_accum(dev, semseg, oracle):
     if oracle:
         return NuScenesOracleSemanticPointCloudAccumulator(
             semseg, nr.NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False, bev,
-            'synth', False, None, accum_cfg=None, device=dev)
+            'synth', False, None, accum_cfg=None, device=dev, **wires)
     return NuScenesSemanticPointCloudAccumulator(
         200.0, 1e3, semseg, nr.NUSCENES_FILTERS, cfg.DEFAULT_SEM_IDXS, False,
-        bev, 'synth', accum_cfg=None, icp_cfg=None, device=dev)
+        bev, 'synth', accum_cfg=None, icp_cfg=None, device=dev, **wires)
 
 
 def phase_nuscenes_runner_path(dev):
@@ -1927,6 +2205,7 @@ def phase_pc_accum(dev, tmp):
 # 1-rank world runs over NCCL. Two ranks share one card: their times are
 # not scale-out figures.
 MESH_RANKS = 2
+MESH4_RANKS = 4
 MESH_TIMEOUT_S = 600
 # GPipe on the pp = 2 mesh at tests/test_pipeline.py's shapes.
 PIPE = dict(d=16, mb=8, micro=(2, 4, 5), grad_d=8, grad_mb=4, grad_micro=8)
@@ -2064,15 +2343,20 @@ class _KeepFirstParams:
         return getattr(self.engine, name)
 
 
-def _time_shard(client, dev, first=None):
+def _time_shard(client, dev, first=None, live=None):
     """Time each ``client.shard`` (the scatter of the flat rows from rank
     0, synchronized) into the returned list; ``first`` keeps a copy of
-    the first call's rows."""
+    the first call's rows; ``live`` gets each call's live rows per rank
+    (shard_points_to_mesh deals row r to rank r % n)."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
     shard, times = client.shard, []
+    n = pmesh.axis_size(client.mesh, client.axis)
 
     def timed(points, valid, fids, inst_dyn):
         if first is not None and not first:
             first.extend(t.clone() for t in (points, valid, fids, inst_dyn))
+        if live is not None:
+            live.append(valid.reshape(-1, n).sum(0).tolist())
         _sync(dev)
         ts = time.perf_counter()
         shard(points, valid, fids, inst_dyn)
@@ -2165,6 +2449,14 @@ def _mesh_runner(rank, n, tmp, plan, dev):
         c2, w1, w2, G = stripe
         out['stripe_kernel'] = dict(max_abs_err=_compare(ss, c2, w1, w2, G),
                                     **_shape(c2, G))
+    # Kernel 1's device time and bound, and its plain version's time, on
+    # rank 0's stripe, once every rank's compare has left the card.
+    torch.distributed.barrier()
+    if dev.type == 'cuda' and rank == 0:
+        out['stripe_kernel'].update(
+            timing=_time_words(ss, c2, w1, w2, G),
+            plain_ms=_median_ms(lambda: ss.segmented_stats_words_reference(
+                c2, w1, w2, G, med_nsplit=2), reps=3))
     del stripe
     # The psum engine on rank 0's first raster input: the full rows
     # (points, valid, frame ids, inst_dyn) and the parameters.
@@ -2228,7 +2520,9 @@ def _mesh_step(rank, n, tmp, plan, dev):
             engine = accum.sem_bev_generator.mesh_raster.raster
             spans = _Spans(dev)
             engine.mark = spans.mark
-            scatter_s = _time_shard(accum.sem_bev_generator.mesh_raster, dev)
+            live = []
+            scatter_s = _time_shard(accum.sem_bev_generator.mesh_raster, dev,
+                                    live=live)
             accum.integrate([frames[0]])
             step_s, bevs = [], []
             try:
@@ -2251,6 +2545,7 @@ def _mesh_step(rank, n, tmp, plan, dev):
                        raster_ms=spans.ms_per_raster(),
                        scatter_ms_per_step=statistics.median(scatter_s) * 1e3,
                        max_live_rows=accum.max_live_rows,
+                       live_rows_per_rank_by_step=live,
                        **_tile_numbers(engine))
         finally:
             sharded.shutdown_mesh_workers(mesh)
@@ -2525,8 +2820,8 @@ def _train_held(dp, one):
 def phase_mesh(dev, main_bevs, runner_samples, plan=None):
     """The mesh paths on a world of MESH_RANKS ranks on this card (gloo):
     the KITTI-360 runner at run()'s defaults on runner_path's 120 frames,
-    its samples held to runner_path's (road, dynamic, rgb and elevation
-    exact, every map within 2e-3), and the psum engine on one of its
+    its samples held to runner_path's, file for file (road, dynamic, rgb
+    and elevation exact, every map within 2e-3), and the psum engine on one of its
     raster inputs held to the one-device raster; step(bev_num=16) at the
     bench configuration for 9 steps, held to main_path's samples by the
     step() rule; train_semseg.run data-parallel at full width against a
@@ -2619,17 +2914,55 @@ def phase_mesh(dev, main_bevs, runner_samples, plan=None):
     return launches, step_launches
 
 
-def phase_mesh_nccl(dev, plan=None):
-    """The same mesh code on a 1-rank world over NCCL: one tile raster at
-    the runner's width against the one-device raster, and one
-    data-parallel train step against the one-device step."""
+def phase_mesh_step4(dev, main_bevs, plan=None):
+    """main_path's step() drive on a (1, 4) mesh: 4 ranks on this card
+    over gloo, rank 0 integrating, the tile engine's route calibrated on
+    the first step's small window and then holding the grown ones (no
+    TileRouteOverflow: the rows are dealt strided). Holds 144 kernel-1
+    launches per rank and the samples to main_path's (road, dynamic, rgb
+    and elevation exact, intensity within SELFTEST_ATOL); reports each
+    rank's live rows per step and the route numbers."""
     plan = plan or _mesh_plan(dev)
     t0 = time.perf_counter()
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        (r,) = _spawn_world(1, 'nccl' if dev.type == 'cuda' else 'gloo',
-                            tmp, plan, ('nccl_raster', 'nccl_train'))
+        ranks = _spawn_world(MESH4_RANKS, 'gloo', tmp, plan, ('step',))
+        bevs = _load(tmp, 'mesh_step_bevs')
+    step = ranks[0]['step']
+    launches = [r['step']['launches'] for r in ranks]
+    expect = plan['bev_num'] * plan['steps']
+    check(all(x == expect for x in launches), ('step launches', launches))
+    flat = [{str(i): b for i, b in enumerate(s for st in run for s in st)}
+            for run in (bevs, main_bevs)]
+    err = _exact_and_close(*flat)
+    emit('mesh_step4', t0, ranks=MESH4_RANKS, backend='gloo (4 ranks share '
+         'one card)', launches_per_rank=launches,
+         vs_main_path_max_abs=err,
+         peak_bytes_per_rank=[r['step'].get('max_memory_allocated_bytes')
+                              for r in ranks],
+         **{k: step[k] for k in (
+             'step_s', 'median_step_s', 'samples_per_s', 'raster_ms',
+             'scatter_ms_per_step', 'max_live_rows',
+             'live_rows_per_rank_by_step', 'route_peak_rows', 'route_cap',
+             'dest_cap_factor')})
+    return launches
+
+
+def phase_mesh_nccl(dev, plan=None):
+    """The same mesh code on a 1-rank world over NCCL: one tile raster at
+    the runner's width against the one-device raster, and one
+    data-parallel train step against the one-device step. A world of one
+    has no peer to wait for, so it runs in this process, last, which
+    saves a spawned process's start-up."""
+    plan = plan or _mesh_plan(dev)
+    t0 = time.perf_counter()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    with tempfile.TemporaryDirectory() as tmp:
+        _mesh_world(0, 1, tmp, backend, plan, ('nccl_raster', 'nccl_train'))
+        r = _load(tmp, f'{backend}_r0')
     emit('mesh_nccl', t0, raster=r['nccl_raster'], train=r['nccl_train'])
 
 
@@ -2671,17 +3004,26 @@ def main():
     phase_build()
     kern = phase_kernel(dev)
     kern2 = phase_kernel2(dev)
-    main_res, raster_in, main_bevs = phase_main_path(dev)
+    main_res, raster_in, main_bevs, frames, accum = phase_main_path(dev)
+    wire = phase_wire_path(dev, main_bevs, frames, accum)
+    del frames, accum
     on_path = phase_kernel_on_main_path(raster_in)
     del raster_in
-    runner, samples, stats_in, runner_raster_in = phase_runner_path(dev)
+    runner, samples, stats_in, runner_raster_in, window = \
+        phase_runner_path(dev)
     on_runner = phase_kernel2_on_runner_path(stats_in,
                                              runner['rows_per_raster'])
     del stats_in
     phase_selftest(runner_raster_in)
     del runner_raster_in
     runner2 = phase_runner_path(dev, words_kernel=False, reference=samples)[0]
+    rgb_runner = phase_runner_path(dev, reference=samples,
+                                   bev_type='rgb')[0]
+    phase_legacy_path(dev, window)
+    del window
     oracle, oracle_stats_in = phase_oracle_path(dev)
+    oracle_wire = phase_oracle_path(dev, 'yuv420h', 'quantized',
+                                    'oracle_wire_path')[0]
     on_oracle = phase_kernel2_on_runner_path(
         oracle_stats_in, oracle['rows_per_raster'],
         phase='kernels_on_oracle_path')
@@ -2694,9 +3036,10 @@ def main():
         phase_pc_accum(dev, tmp)
     phase_gpu_vs_cpu_train(dev)
     mesh_runner, mesh_step = phase_mesh(dev, main_bevs, samples)
+    mesh_step4 = phase_mesh_step4(dev, main_bevs)
     del main_bevs, samples
-    phase_mesh_nccl(dev)
     phase_dryrun(dev)
+    phase_mesh_nccl(dev)
     # Each kernel's timing at four shapes: made-up bench raster rows, a
     # step() raster's rows, a KITTI-360 runner raster's rows, an oracle
     # raster's rows.
@@ -2723,7 +3066,13 @@ def main():
                        'nuscenes_runner': nusc_runner['launches'],
                        'nuscenes_runner_icp': nusc_runner['icp_launches'],
                        'kitti360_runner_mesh2': mesh_runner,
-                       'step_mesh2': mesh_step}),
+                       'step_mesh2': mesh_step,
+                       'step_yuv420h': wire['launches'],
+                       'nuscenes_oracle_wire': oracle_wire['launches'],
+                       'nuscenes_runner_icp_wire':
+                           oracle_wire['icp_frame']['launches'],
+                       'kitti360_runner_rgb': rgb_runner['launches'],
+                       'step_mesh4': mesh_step4}),
         _kernel_entry('segmented_stats', KERNEL2_REPLACES,
                       runner2['kernel2_launches'],
                       max(kern2['max_abs_err'],

@@ -18,6 +18,7 @@ import torch
 from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.accum import buffer
 from pc_accumulation_lib_tpu_torch.bev import core as bev_core
+from pc_accumulation_lib_tpu_torch.bev.rgb_bev import RGBBEVGenerator
 from pc_accumulation_lib_tpu_torch.bev.sem_bev import SemBEVGenerator
 from pc_accumulation_lib_tpu_torch.utils.io import (read_compressed_pickle,
                                                     write_compressed_pickle)
@@ -49,24 +50,38 @@ class SemanticPointCloudAccumulator:
             use_gt_sem=use_gt_sem, semseg_filters=self.semseg_filters)
 
         bev_params = bev_params or {}
-        if bev_params.get('type', 'sem') != 'sem':
-            raise NotImplementedError('the port has the semantic BEV only')
-        self.sem_bev_generator = SemBEVGenerator(
-            self.sem_idxs,
-            bev_params.get('view_size', 80),
-            bev_params.get('pixel_size', 256),
-            bev_params.get('max_trans_radius', 0.),
-            bev_params.get('zoom_thresh', 0.),
-            bev_params.get('do_warp', False),
-            bev_params.get('int_scaler', 1.),
-            bev_params.get('int_sep_scaler', 1.),
-            bev_params.get('int_mid_threshold', 0.5),
-            bev_params.get('height_filter'),
-            seed=seed,
-            fetch_dtype=bev_params.get('fetch_dtype', 'float16'),
-            mesh=bev_params.get('mesh'),  # point-sharded over its ranks
-            mesh_impl=bev_params.get('mesh_impl', 'auto'),
-            device=self.device)
+        bev_type = bev_params.get('type', 'sem')
+        if bev_type == 'sem':
+            self.sem_bev_generator = SemBEVGenerator(
+                self.sem_idxs,
+                bev_params.get('view_size', 80),
+                bev_params.get('pixel_size', 256),
+                bev_params.get('max_trans_radius', 0.),
+                bev_params.get('zoom_thresh', 0.),
+                bev_params.get('do_warp', False),
+                bev_params.get('int_scaler', 1.),
+                bev_params.get('int_sep_scaler', 1.),
+                bev_params.get('int_mid_threshold', 0.5),
+                bev_params.get('height_filter'),
+                seed=seed,
+                fetch_dtype=bev_params.get('fetch_dtype', 'float16'),
+                mesh=bev_params.get('mesh'),  # point-sharded over its ranks
+                mesh_impl=bev_params.get('mesh_impl', 'auto'),
+                device=self.device)
+        elif bev_type == 'rgb':
+            self.sem_bev_generator = RGBBEVGenerator(
+                bev_params.get('view_size', 80),
+                bev_params.get('pixel_size', 256),
+                bev_params.get('max_trans_radius', 0.),
+                bev_params.get('zoom_thresh', 0.),
+                bev_params.get('do_warp', False),
+                bev_params.get('int_scaler', 1.),
+                bev_params.get('int_sep_scaler', 1.),
+                bev_params.get('int_mid_threshold', 0.5),
+                seed=seed, device=self.device)
+        else:
+            raise ValueError(f"bev_params['type'] must be 'sem' or 'rgb', "
+                             f'got {bev_type!r}')
 
         a = self.accum_cfg
         self.state = buffer.init_state(a.max_frames, a.painted_cap,

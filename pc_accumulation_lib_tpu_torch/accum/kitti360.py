@@ -23,6 +23,7 @@ from pc_accumulation_lib_tpu_torch.accum.base import (
     SemanticPointCloudAccumulator)
 from pc_accumulation_lib_tpu_torch.ops import geometry
 from pc_accumulation_lib_tpu_torch.ops import icp as icp_ops
+from pc_accumulation_lib_tpu_torch.ops import imgcodec
 from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
 
@@ -70,12 +71,13 @@ def pose_params_vec(T_world, T_world_prev, ws, frame_id: int):
 
 class DeviceObs(NamedTuple):
     """An uploaded observation (upload_obs): ``aux`` is the camera image
-    (camera path) or the padded per-point GT labels (GT path);
-    ``rgb_host`` keeps the host image for the frame bookkeeping."""
+    (camera path: a tensor, or the yuv wire's tuple of tensors) or the
+    padded per-point GT labels (GT path); ``rgb_host`` keeps the host
+    image for the frame bookkeeping."""
     rgb_host: object
     pc_pad: torch.Tensor
     valid: torch.Tensor
-    aux: torch.Tensor
+    aux: object
 
 
 class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
@@ -96,16 +98,20 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         is a models.semseg.SemSegTorch on the same device.
         ``transfer_dtype='quantized'`` uploads points packed at 7 B/point
         (xyz as 5 mm int16, intensity as uint8 at the same x200 scale) and
-        the image as uint8, decoded on the device."""
+        the image as uint8, decoded on the device. ``img_transfer``
+        'yuv420' or 'yuv420h' (ops/imgcodec.py) encodes the image on the
+        host and decodes it at the head of the frame step; None means
+        'rgb8'."""
         super().__init__(horizon_dist, icp_threshold, semseg_model,
                          semseg_filters, sem_idxs, use_gt_sem, bev_params,
                          accum_cfg, seed, device=device)
-        if img_transfer not in (None, 'rgb8'):
-            raise NotImplementedError(
-                f"img_transfer={img_transfer!r}: the port uploads 'rgb8'")
+        if img_transfer not in (None, 'rgb8') + imgcodec.WIRES:
+            raise ValueError(f'img_transfer={img_transfer!r}')
+        self.img_transfer = img_transfer or 'rgb8'
         if self.accum_cfg.compact_rungs:
             raise NotImplementedError('AccumConfig.compact_rungs: the port '
-                                      'sweeps compact_cap rows')
+                                      'sweeps compact_cap rows (the rung '
+                                      'ladder is ROADMAP queue 1 item 4)')
         if transfer_dtype not in ('float32', 'quantized'):
             raise ValueError(f'transfer_dtype={transfer_dtype!r}')
         self.transfer_dtype = transfer_dtype
@@ -131,6 +137,8 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         self._ws_dev = None          # window start, 0-d int32
         self._pose_vec_dev = None    # (22,) raster pose parameters
         self.max_live_rows = 0       # compact_window telemetry (step())
+        self.upload_bytes_total = 0  # host -> device observation bytes
+        self.upload_frames = 0
 
     # ------------------------------------------------------------------
     # Upload
@@ -179,11 +187,27 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
             aux = np.zeros(self.accum_cfg.max_points_per_frame, np.float32)
             aux[:pc.shape[0]] = np.asarray(sem_gt).reshape(-1)
         else:
-            dt = np.uint8 if self.transfer_dtype == 'quantized' \
-                else np.float32
-            aux = np.asarray(rgb)[..., :3].astype(dt)
+            aux = self._prep_rgb(rgb)
+        if isinstance(aux, tuple):
+            aux_bytes = sum(p.nbytes for p in aux)
+            aux_dev = tuple(self._to_device(p) for p in aux)
+        else:
+            aux_bytes, aux_dev = aux.nbytes, self._to_device(aux)
+        self.upload_bytes_total += pc_pad.nbytes + valid.nbytes + aux_bytes
+        self.upload_frames += 1
         return DeviceObs(rgb, self._to_device(pc_pad),
-                         self._to_device(valid), self._to_device(aux))
+                         self._to_device(valid), aux_dev)
+
+    def _prep_rgb(self, rgb):
+        """The host image on its wire: the yuv tuple, uint8 (quantized)
+        or float32."""
+        arr = np.asarray(rgb)[..., :3]
+        if self.img_transfer in imgcodec.WIRES:
+            return imgcodec.encode_wire(arr.astype(np.uint8),
+                                        self.img_transfer)
+        if self.transfer_dtype == 'quantized':
+            return arr.astype(np.uint8)
+        return arr.astype(np.float32)
 
     # ------------------------------------------------------------------
     # Per-frame device work
@@ -222,7 +246,8 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
             painted, valid_out = buffer.paint_frame_gt(pc, valid, aux,
                                                        T_world, filters)
         else:
-            rgb_img = aux.to(torch.float32)
+            rgb_img = (imgcodec.decode_wire(aux) if isinstance(aux, tuple)
+                       else aux.to(torch.float32))
             semseg = self.semseg_model.predict(rgb_img[None])[0]
             painted, valid_out = buffer.paint_frame_camera(
                 pc, valid, rgb_img, semseg, self.P_velo_frame, T_world,

@@ -17,7 +17,7 @@ from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.accum.base import (
     SemanticPointCloudAccumulator)
 from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
-    check_wire, pad_multicam_obs, paint_insert_multicam)
+    check_wire, decode_multicam, encode_multicam_obs, paint_insert_multicam)
 from pc_accumulation_lib_tpu_torch.ops import geometry
 from pc_accumulation_lib_tpu_torch.ops import icp as icp_ops
 
@@ -42,6 +42,8 @@ class NuScenesSemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         if use_gt_sem:
             raise NotImplementedError()
         check_wire(img_transfer, transfer_dtype)
+        self.img_transfer = img_transfer
+        self.transfer_dtype = transfer_dtype
         super().__init__(horizon_dist, icp_threshold, semseg_model,
                          semseg_filters, sem_idxs, use_gt_sem, bev_params,
                          accum_cfg, seed, device=device)
@@ -76,10 +78,13 @@ class NuScenesSemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         return num_removed
 
     @torch.no_grad()
-    def _fused_step(self, pc_pad, valid, cam_idx, imgs, first: bool):
-        """One frame's device work: ICP preprocess and register against
-        the previous cloud, pose chain, paint and insert. Returns the
-        packed (17,) [T_world(16), n_painted] and the class maps."""
+    def _fused_step(self, pc_wire, valid, cam_idx, img_parts, first: bool):
+        """One frame's device work: wire decode, ICP preprocess and
+        register against the previous cloud (on the decoded points), pose
+        chain, paint and insert. Returns the packed (17,) [T_world(16),
+        n_painted] and the class maps."""
+        pc_pad, imgs = decode_multicam(pc_wire, img_parts,
+                                       self.accum_cfg.max_points_per_frame)
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
         new_cloud = self._icp_pre(pc_pad[:, :3], valid)
         if first:
@@ -100,16 +105,18 @@ class NuScenesSemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                           n_valid.to(torch.float32)[None]]), semsegs
 
     def _integrate_one(self, obs: dict):
-        _, pc_pad, valid, cam_idx, imgs = pad_multicam_obs(
-            obs, self.accum_cfg.max_points_per_frame)
+        _, pc_wire, valid, cam_idx, parts = encode_multicam_obs(
+            obs, self.accum_cfg.max_points_per_frame, self.img_transfer,
+            self.transfer_dtype)
         first = self._icp_prev_cloud is None
         if first:
             self._T_world_dev = torch.as_tensor(
                 self._T_world_velo_last, dtype=torch.float32,
                 device=self.device)
         packed, semsegs = self._fused_step(
-            self._to_device(pc_pad), self._to_device(valid),
-            self._to_device(cam_idx), self._to_device(imgs), first)
+            self._to_device(pc_wire), self._to_device(valid),
+            self._to_device(cam_idx),
+            tuple(self._to_device(p) for p in parts), first)
         self.frame_count += 1
         vec = packed.cpu().numpy().astype(np.float64)
         T_world = vec[:16].reshape(4, 4)

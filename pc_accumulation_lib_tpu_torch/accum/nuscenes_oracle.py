@@ -8,13 +8,14 @@ Counterpart of accum/nuscenes_oracle.py:
     flagged dynamic raises its id in the device table inst_dyn
     (buffer.set_instance_dyn), which the raster folds into every stored
     point of the instance;
-  * one frame's device work is one function (``paint_insert_multicam``
-    plus the dyn update): the uint8 images of all cameras go through one
-    batched semseg forward and one gather paint.
+  * one frame's device work is one function (``decode_multicam``,
+    ``paint_insert_multicam`` and the dyn update): the images of all
+    cameras go through one batched semseg forward and one gather paint.
 
-The camera and point wires are 'rgb8' and 'float32' (uint8 images, float32
-point rows); the yuv and quantized wires of the JAX package are not
-ported and raise.
+The camera wire is 'rgb8' (uint8), 'yuv420' or 'yuv420h' (ops/imgcodec.py:
+encoded on the host, decoded in the frame step); the point wire is
+'float32' or 'quantized' (accum/pointpack.py, 13 B/point, unpacked in the
+frame step).
 """
 from __future__ import annotations
 
@@ -24,56 +25,68 @@ import numpy as np
 import torch
 
 from pc_accumulation_lib_tpu_torch import config as cfg
-from pc_accumulation_lib_tpu_torch.accum import buffer, tracking
+from pc_accumulation_lib_tpu_torch.accum import buffer, pointpack, tracking
 from pc_accumulation_lib_tpu_torch.accum.base import (
     SemanticPointCloudAccumulator)
+from pc_accumulation_lib_tpu_torch.ops import imgcodec
 
 _MAX_DYN_UPDATES = 64  # padded per-frame dynamic-flag update batch
 
 
 def check_wire(img_transfer: str, transfer_dtype: str) -> None:
-    """Accept the JAX package's wire names; only 'rgb8' + 'float32' are
-    ported."""
-    if img_transfer not in ('rgb8', 'yuv420', 'yuv420h'):
+    """The JAX package's wire names: 'rgb8', 'yuv420' or 'yuv420h' for
+    the cameras, 'float32' or 'quantized' for the points."""
+    if img_transfer not in ('rgb8',) + imgcodec.WIRES:
         raise ValueError(f'img_transfer={img_transfer!r}')
     if transfer_dtype not in ('float32', 'quantized'):
         raise ValueError(f'transfer_dtype={transfer_dtype!r}')
-    if img_transfer != 'rgb8' or transfer_dtype != 'float32':
-        raise NotImplementedError(
-            f'img_transfer={img_transfer!r}, transfer_dtype='
-            f'{transfer_dtype!r}: the port uploads rgb8 images and float32 '
-            'points; the yuv and quantized wire codecs are ROADMAP "Still '
-            'to port" item 6')
 
 
-def pad_multicam_obs(obs: dict, n_pad: int):
-    """Host arrays of one NuScenes observation: (pc (N,C) float32, pc_pad
-    (n_pad,C) float32, valid (n_pad,) bool, cam_idx (n_pad,) int32 with -1
-    padding, imgs (cams,H,W,3) uint8)."""
+def encode_multicam_obs(obs: dict, n_pad: int, img_transfer: str = 'rgb8',
+                        transfer_dtype: str = 'float32'):
+    """Host arrays of one NuScenes observation on its wires: (pc (N,C)
+    float32, the points (n_pad,C) float32 or, quantized, (n_pad*13,)
+    uint8, valid (n_pad,) bool, cam_idx (n_pad,) int32 with -1 padding,
+    the image parts: (imgs (cams,H,W,3) uint8,) for 'rgb8', else the yuv
+    wire's tuple)."""
     pc = np.asarray(obs['pc'], np.float32)
     if pc.shape[0] > n_pad:
         raise RuntimeError(
             f'Frame has {pc.shape[0]} points > max_points_per_frame='
             f'{n_pad}.')
-    pc_pad = np.zeros((n_pad, pc.shape[1]), np.float32)
-    pc_pad[:pc.shape[0]] = pc
+    if transfer_dtype == 'quantized':
+        pc_wire = pointpack.pack_points7_np(pc, n_pad)
+    else:
+        pc_wire = np.zeros((n_pad, pc.shape[1]), np.float32)
+        pc_wire[:pc.shape[0]] = pc
     cam_idx = -np.ones(n_pad, np.int32)
     cam_idx[:pc.shape[0]] = np.asarray(obs['pc_cam_idx'], np.int32)
     valid = np.arange(n_pad) < pc.shape[0]
     imgs = np.stack([np.asarray(im)[..., :3].astype(np.uint8)
                      for im in obs['images']])
-    return pc, pc_pad, valid, cam_idx, imgs
+    parts = (imgcodec.encode_wire(imgs, img_transfer)
+             if img_transfer in imgcodec.WIRES else (imgs,))
+    return pc, pc_wire, valid, cam_idx, tuple(parts)
+
+
+def decode_multicam(pc_wire: torch.Tensor, img_parts: tuple, n_pad: int):
+    """The device half of encode_multicam_obs: (points (n_pad,C)
+    float32, images (cams,H,W,3) float32 in [0, 255])."""
+    pc_pad = (pointpack.unpack_points7(pc_wire, n_pad)
+              if pc_wire.dtype == torch.uint8 else pc_wire)
+    imgs = (imgcodec.decode_wire(img_parts) if len(img_parts) > 1
+            else img_parts[0].to(torch.float32))
+    return pc_pad, imgs
 
 
 @torch.no_grad()
 def paint_insert_multicam(state, semseg_model, filters, cap: int, pc_pad,
-                          valid, cam_idx, imgs_u8, T_world_ego, inst_remap,
+                          valid, cam_idx, imgs, T_world_ego, inst_remap,
                           frame_id: int):
-    """One frame's paint on the device: uint8 -> float images, one batched
-    semseg forward over the cameras, the multi-camera paint, compact_rows
-    and the ring insert (in place). Returns (painted count 0-d tensor,
+    """One frame's paint on the device: one batched semseg forward over
+    the cameras' float images, the multi-camera paint, compact_rows and
+    the ring insert (in place). Returns (painted count 0-d tensor,
     semsegs (cams,H,W) int32)."""
-    imgs = imgs_u8.to(torch.float32)
     semsegs = semseg_model.predict(imgs)
     painted, valid_out = buffer.paint_frame_multicam(
         pc_pad, valid, cam_idx, imgs, semsegs, T_world_ego, inst_remap,
@@ -110,15 +123,16 @@ def instance_tables(pc: np.ndarray, inst_tokens, frame_to_global: dict,
 
 
 class OracleDeviceObs(NamedTuple):
-    """An uploaded observation (``upload_obs``): the padded points, camera
-    indices and uint8 image stack on the device; the host ``obs`` dict and
-    points for the tracking and pose work done in integrate order."""
+    """An uploaded observation (``upload_obs``): the points, validity,
+    camera indices and image parts on their wires, on the device; the
+    host ``obs`` dict and points for the tracking and pose work done in
+    integrate order."""
     obs: dict
     pc: np.ndarray
     pc_pad: torch.Tensor
     valid: torch.Tensor
     cam_idx: torch.Tensor
-    imgs: torch.Tensor
+    imgs: tuple
 
 
 class NuScenesOracleSemanticPointCloudAccumulator(
@@ -140,7 +154,8 @@ class NuScenesOracleSemanticPointCloudAccumulator(
         the caller passes 'cpu'); ``semseg_model`` is a
         models.semseg.SemSegTorch on the same device. ``gt_lane_poses``
         may be given instead of loading the lanes with the devkit's map
-        expansion."""
+        expansion. ``img_transfer`` and ``transfer_dtype`` name the camera
+        and point wires (check_wire)."""
         check_wire(img_transfer, transfer_dtype)
         if use_gt_sem:
             raise NotImplementedError()
@@ -160,6 +175,8 @@ class NuScenesOracleSemanticPointCloudAccumulator(
             from pc_accumulation_lib_tpu_torch.dataloaders.lanemap import (
                 get_centerlines)
             self.gt_lane_poses = get_centerlines(dataroot, loc)
+        self.img_transfer = img_transfer
+        self.transfer_dtype = transfer_dtype
         self.upload_bytes_total = 0   # host -> device observation bytes
         self.upload_frames = 0
         # Painted counts of integrated frames not yet read on the host, and
@@ -176,15 +193,17 @@ class NuScenesOracleSemanticPointCloudAccumulator(
         state are not touched here."""
         if isinstance(obs, OracleDeviceObs):
             return obs
-        pc, pc_pad, valid, cam_idx, imgs = pad_multicam_obs(
-            obs, self.accum_cfg.max_points_per_frame)
-        self.upload_bytes_total += (pc_pad.nbytes + cam_idx.nbytes
-                                    + valid.size + imgs.nbytes)
+        pc, pc_wire, valid, cam_idx, parts = encode_multicam_obs(
+            obs, self.accum_cfg.max_points_per_frame, self.img_transfer,
+            self.transfer_dtype)
+        self.upload_bytes_total += (pc_wire.nbytes + cam_idx.nbytes
+                                    + valid.size
+                                    + sum(p.nbytes for p in parts))
         self.upload_frames += 1
-        return OracleDeviceObs(obs, pc, self._to_device(pc_pad),
+        return OracleDeviceObs(obs, pc, self._to_device(pc_wire),
                                self._to_device(valid),
                                self._to_device(cam_idx),
-                               self._to_device(imgs))
+                               tuple(self._to_device(p) for p in parts))
 
     def integrate(self, observations: list) -> int:
         """Integrate observation dicts or ``OracleDeviceObs``. No eviction:
@@ -196,11 +215,14 @@ class NuScenesOracleSemanticPointCloudAccumulator(
     @torch.no_grad()
     def _fused_step(self, dev: OracleDeviceObs, T_world_ego, remap,
                     dyn_updates, frame_id: int):
-        """One frame's device work: paint, insert, dyn-table update."""
+        """One frame's device work: wire decode, paint, insert, dyn-table
+        update."""
+        pc_pad, imgs = decode_multicam(dev.pc_pad, dev.imgs,
+                                       self.accum_cfg.max_points_per_frame)
         n_valid, semsegs = paint_insert_multicam(
             self.state, self.semseg_model, self.semseg_filters,
-            self.accum_cfg.painted_cap, dev.pc_pad, dev.valid, dev.cam_idx,
-            dev.imgs, T_world_ego, remap, frame_id)
+            self.accum_cfg.painted_cap, pc_pad, dev.valid, dev.cam_idx,
+            imgs, T_world_ego, remap, frame_id)
         buffer.set_instance_dyn(self.state, dyn_updates,
                                 (dyn_updates > 0).to(torch.float32))
         return n_valid, semsegs

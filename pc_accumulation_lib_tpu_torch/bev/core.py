@@ -152,7 +152,8 @@ def make_raster_fn(view_size, pixel_size, sem_idxs, int_scaler,
     """
     if pack is not None:
         raise NotImplementedError(
-            f'pack={pack!r}: the port has the dense float16 output only')
+            f'pack={pack!r}: the port has the dense float16 output only '
+            '(the sparse fetch is ROADMAP queue 1 item 4)')
     if backend not in ('sort', 'scatter'):
         raise ValueError(f"backend must be 'sort' or 'scatter', got "
                          f'{backend!r}')

@@ -75,7 +75,8 @@ class SemBEVGenerator:
         if fetch_dtype != 'float16':
             raise NotImplementedError(
                 f"fetch_dtype={fetch_dtype!r}: the port has the dense "
-                "'float16' fetch only")
+                "'float16' fetch only (the sparse and quantized fetch is "
+                "ROADMAP queue 1 item 4)")
         self.sem_idxs = dict(sem_idxs)
         self.view_size = float(view_size)
         self.pixel_size = int(pixel_size)

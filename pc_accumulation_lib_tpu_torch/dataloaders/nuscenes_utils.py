@@ -1,18 +1,21 @@
 """NuScenes dataset helpers (host numpy), the parts the dataloader uses.
 
 The port's copy of dataloaders/nuscenes_utils.py: transforms and
-quaternion helpers, the batched rig projection, ego-hull removal, the
-all-boxes containment test, the sensor wrappers, pose helpers, the
-sweep walk and the multi-sweep instance-labelled point fetch. The devkit
-object is passed in (any object with its query surface); PIL is imported
-only when a camera image is opened.
+quaternion helpers, the batched rig projection, image feature sampling at
+projected points (on tensors), ego-hull removal, the all-boxes
+containment test, the sensor wrappers, pose helpers, the sweep walk, the
+multi-sweep instance-labelled point fetch and the ego-centric map patch.
+The devkit object is passed in (any object with its query surface); PIL
+is imported only when an image is opened or rotated.
 """
 from __future__ import annotations
 
+import math
 import os.path as osp
 
 import numpy as np
 import numpy.linalg as LA
+import torch
 
 # Detection-class canonicalization of the devkit's category names.
 map_name_from_general_to_detection = {
@@ -83,6 +86,38 @@ def apply_tf(tf_mat: np.ndarray, points: np.ndarray, in_place=False):
         points[:, :3] = homo_transform(tf_mat, points[:, :3])
         return None
     return homo_transform(tf_mat, points[:, :3])
+
+
+def pts_feat_from_img(pts_uv, img, method: str = 'bilinear'):
+    """Image features at (N,2) pixel coordinates [u, v] (arrays or
+    tensors; every point strictly inside the image's 1-pixel border) as a
+    tensor on ``img``'s device: 'nearest' gathers the rounded pixel,
+    'bilinear' blends the four pixels around each point by the fractional
+    parts of u and v, in the coordinates' float type. (At an integer
+    coordinate the JAX copy divides 0 by 0; here the weight of the far
+    pixel is 0.)"""
+    if method not in ('bilinear', 'nearest'):
+        raise ValueError(f"method must be 'bilinear' or 'nearest', got "
+                         f'{method!r}')
+    img = torch.as_tensor(img)
+    uv = torch.as_tensor(pts_uv, device=img.device)
+    wh = torch.tensor([img.shape[1], img.shape[0]], device=img.device)
+    if not bool(((uv > 1) & (uv < wh - 1)).all()):
+        raise ValueError('pts_uv must be all inside image')
+    if method == 'nearest':
+        px = torch.round(uv).to(torch.int64)
+        return img[px[:, 1], px[:, 0]]
+    base = torch.floor(uv)
+    fu, fv = (uv - base).unbind(1)
+    u0, v0 = base.to(torch.int64).unbind(1)
+    feat = img.to(uv.dtype)
+    out = torch.zeros((uv.shape[0],) + feat.shape[2:], dtype=uv.dtype,
+                      device=img.device)
+    for du, dv, wgt in ((0, 0, (1 - fu) * (1 - fv)), (1, 0, fu * (1 - fv)),
+                        (0, 1, (1 - fu) * fv), (1, 1, fu * fv)):
+        w = wgt.reshape((-1,) + (1,) * (feat.dim() - 2))
+        out += w * feat[v0 + dv, u0 + du]
+    return out
 
 
 def project_pts3d(pc_cam: np.ndarray, cam_K: np.ndarray,
@@ -337,3 +372,37 @@ def inst_centric_get_sweeps(nusc, sample_token: str, n_sweeps: int,
             target_from_glob, point_cloud_range)
         out['instances_name'] = np.array(instances_name)
     return out
+
+
+def _yaw_deg(q) -> float:
+    """The heading of a (w, x, y, z) quaternion in degrees: the yaw of
+    its intrinsic z-y'-x'' Tait-Bryan angles (pyquaternion's
+    yaw_pitch_roll[0], which the reference reads)."""
+    w, x, y, z = np.asarray(q, np.float64) / LA.norm(q)
+    return math.degrees(math.atan2(2 * (w * z - x * y),
+                                   1 - 2 * (y * y + z * z)))
+
+
+def _square(image: np.ndarray, cx, cy, half: int) -> np.ndarray:
+    """The square of half-width ``half`` pixels centred at (cx, cy)."""
+    return image[int(cy - half):int(cy + half), int(cx - half):int(cx + half)]
+
+
+def render_ego_centric_map(map_mask, pose: dict, axes_limit: float = 40):
+    """The map patch of +-axes_limit m around the ego pose, heading up,
+    as uint8 (foreground 125, background 255). ``map_mask`` is the
+    devkit's MapMask (to_pixel_coords, resolution, mask(), foreground,
+    background); ``pose`` an ego_pose record (translation, rotation as
+    w, x, y, z). A square sqrt(2) times larger is cut first, so the
+    rotation about its centre leaves no corner empty."""
+    from PIL import Image
+    half = int(axes_limit * (1.0 / map_mask.resolution))
+    cx, cy = map_mask.to_pixel_coords(pose['translation'][0],
+                                      pose['translation'][1])
+    outer = _square(map_mask.mask(), cx, cy, int(half * math.sqrt(2)))
+    turned = np.asarray(Image.fromarray(outer).rotate(
+        90 - _yaw_deg(pose['rotation'])))
+    patch = _square(turned, turned.shape[1] // 2, turned.shape[0] // 2, half)
+    recolour = np.where(patch == map_mask.foreground, 125,
+                        np.where(patch == map_mask.background, 255, patch))
+    return recolour.astype(patch.dtype)

@@ -5,7 +5,9 @@ covariance normals (closed-form smallest eigenvector), and a fixed number
 of Gauss-Newton steps with an annealed trim. ``register(source, target)``
 returns T mapping source-frame coords to target-frame coords.
 
-All products stay in float32. Nothing here syncs with the host: the 6x6
+Every product is in the clouds' dtype: float32 on the accumulators'
+paths; a float64 run of the same code is the reference that float32
+rounding is measured against. Nothing here syncs with the host: the 6x6
 solve is ``torch.linalg.solve_ex`` without the error check, and the
 degenerate-step guard is a ``torch.where``.
 """
@@ -141,7 +143,7 @@ def make_register_fn(num_iters=12, damping=1e-6, trim_ratio=0.9):
         nn_d2 = d2.gather(1, nn[:, None])[:, 0]
         q = tgt.points[nn]
         n = tgt.normals[nn]
-        w = (src.valid & (nn_d2 < max_corr_dist ** 2)).to(torch.float32)
+        w = (src.valid & (nn_d2 < max_corr_dist ** 2)).to(p.dtype)
         if trim_ratio < 1.0 and it >= num_iters // 2:
             finite_d2 = torch.where(w > 0, nn_d2, math.nan)
             cutoff = torch.nanquantile(finite_d2, trim_ratio)
@@ -159,7 +161,7 @@ def make_register_fn(num_iters=12, damping=1e-6, trim_ratio=0.9):
         return T_new, rmse, n_corr
 
     def register(source: ICPCloud, target: ICPCloud, T_init, max_corr_dist):
-        T = T_init.to(torch.float32)
+        T = T_init.to(source.points.dtype)
         rmse = n_corr = None
         for it in range(num_iters):
             T, rmse, n_corr = step(T, it, source, target, max_corr_dist)

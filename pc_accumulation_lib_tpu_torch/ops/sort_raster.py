@@ -219,7 +219,8 @@ def split_stats_from_words_flat(c2, packed, packed2, n_cells, gen_future,
     {channel_split: (n_cells,)} maps ((3, n_cells) for rgb)."""
     if compact_groups:
         raise NotImplementedError(
-            'compact_groups: the rank-compacted group space is not ported')
+            'compact_groups: the rank-compacted group space is not ported '
+            '(ROADMAP queue 1 item 4, the download half)')
     nsplit = 2 if gen_future else 1
     sent = n_cells * nsplit
     if not use_kernel:

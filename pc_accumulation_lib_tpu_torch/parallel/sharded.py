@@ -119,8 +119,10 @@ class TileShardedRaster:
     pending count (call it at the end of a job). ``route_peak_rows`` and
     ``route_cap`` hold the busiest stripe seen and the capacity it rode
     against. With ``calibrate_dest_cap``, the first clean reading sets
-    the factor once to the observed need times that margin, quantized to
-    0.25 and never above the starting factor; later calls route with it.
+    the factor once to the observed need times that margin, and at least
+    to what a window with every row keyed would need (the blocks' spread),
+    quantized to 0.25 and never above the starting factor; later calls
+    route with it.
     Every rank reads the same reduced counts, so every rank calibrates,
     and raises, on the same call.
 
@@ -230,10 +232,12 @@ class TileShardedRaster:
                         f'rgb_{s}': m[2:5], f'dynamic_{s}': m[5],
                         f'elevation_{s}': m[6]})
         out = bev_core.emit_outputs(chs, meta, params, P, *self.scalers)
-        stats = torch.stack([
-            pmesh.psum((per_dest - cap).clamp(min=0).sum(), self.mesh, axis),
-            pmesh.pmax(per_dest.max(), self.mesh, axis),
-            torch.full_like(per_dest[0], cap)])
+        # One psum carries the dropped and the keyed rows.
+        summed = pmesh.psum(torch.stack([(per_dest - cap).clamp(min=0).sum(),
+                                         per_dest.sum()]), self.mesh, axis)
+        stats = torch.stack([summed[0],
+                             pmesh.pmax(per_dest.max(), self.mesh, axis),
+                             torch.full_like(per_dest[0], cap), summed[1]])
         host = stats.to('cpu', non_blocking=True)
         done = None
         if stats.is_cuda:
@@ -248,7 +252,7 @@ class TileShardedRaster:
     def _check(self, host, done, factor):
         if done is not None:
             done.synchronize()
-        dropped, peak, cap = (int(v) for v in host.tolist())
+        dropped, peak, cap, keyed = (int(v) for v in host.tolist())
         self.route_peak_rows = max(self.route_peak_rows, peak)
         self.route_cap = cap
         if dropped > 0:
@@ -260,11 +264,20 @@ class TileShardedRaster:
                 f'set dest_cap_factor >= {need:.2f}')
         if not self._calibrated and peak > 0:
             # cap / factor is M_l / n for the call this reading came from.
+            # The factor covers this reading's need times the margin, and
+            # never less than a full window's: one whose every row is
+            # keyed puts about M_l / n rows in each block times the
+            # spread of the blocks, the busiest block over the mean block
+            # of this reading's keyed rows (keyed / n^2). A first reading
+            # on a small early window would otherwise settle on 1.0 and
+            # the grown window overflow it.
             self._calibrated = True
             need = peak / max(cap / factor, 1.0)
+            spread = peak * self.n * self.n / max(keyed, 1)
             self.dest_cap_factor = min(
                 self.dest_cap_factor,
-                max(1.0, math.ceil(need * self.calibrate_dest_cap * 4) / 4))
+                max(1.0, math.ceil(spread * 4) / 4,
+                    math.ceil(need * self.calibrate_dest_cap * 4) / 4))
 
     def drain(self):
         """Read every pending overflow count (raises TileRouteOverflow)."""
@@ -306,11 +319,13 @@ def make_mesh_raster_fn(mesh, view_size, pixel_size, sem_idxs, int_scaler,
 
 def shard_points_to_mesh(mesh, points, valid, pt_frame_ids,
                          points_axis: str = 'points', src: int = 0):
-    """Scatter rank ``src``'s flat rows over the points axis (the
-    counterpart of jax.device_put onto P('points')): every rank gets its
-    (M/n,) slice of points, valid and frame ids, in rank order. The
-    other ranks pass None for the three arrays. One collective carries
-    all three (frame ids bit-cast to float32)."""
+    """Deal rank ``src``'s flat rows over the points axis: row r goes to
+    rank r % n, so every rank holds about live / n of the live rows
+    wherever compact_window packed them (jax.device_put onto P('points')
+    cuts contiguous blocks instead, which leaves the live rows on the
+    first ranks). Every statistic of a raster is free of the row order.
+    The other ranks pass None for the three arrays. One collective
+    carries all three (frame ids bit-cast to float32)."""
     device = torch.device(mesh.device_type)
     mine = pmesh.axis_rank(mesh, points_axis) == src
     n = pmesh.axis_size(mesh, points_axis)
@@ -324,6 +339,9 @@ def shard_points_to_mesh(mesh, points, valid, pt_frame_ids,
                           valid.to(torch.float32)[:, None],
                           pt_frame_ids.to(torch.int32).view(
                               torch.float32)[:, None]], dim=1).to(device)
+        # (M, C) -> (n, M/n, C): block d holds rows d, d + n, d + 2n, ...
+        rows = rows.reshape(-1, n, rows.shape[1]).transpose(0, 1)
+        rows = rows.reshape(-1, rows.shape[2]).contiguous()
         m.fill_(points.shape[0])
     M = int(pmesh.broadcast(m, mesh, points_axis, src))
     out = torch.empty((M // n, cfg.PT_DIM + 2), dtype=torch.float32,

@@ -299,7 +299,8 @@ def main(argv=None):
     parser.add_argument('--bevs_per_sample', type=int, default=1)
     parser.add_argument('--bev_horizon_dist', type=float, default=80)
     parser.add_argument('--bev_dist_between_samples', type=float, default=1.)
-    parser.add_argument('--bev_type', type=str, default='sem')
+    parser.add_argument('--bev_type', type=str, default='sem',
+                        choices=('sem', 'rgb'))
     parser.add_argument('--bev_view_size', type=float, default=80)
     parser.add_argument('--bev_pixel_size', type=int, default=256)
     parser.add_argument('--bev_max_trans_radius', type=float, default=0)
@@ -311,8 +312,9 @@ def main(argv=None):
     parser.add_argument('--height_filter', type=float, default=None)
     parser.add_argument('--icp_threshold', type=float, default=1e3)
     parser.add_argument('--no_viz', action='store_true')
+    # Camera and point wires (ops/imgcodec.py, accum/pointpack.py).
     parser.add_argument('--img_transfer', type=str, default='rgb8',
-                        choices=('rgb8',))
+                        choices=('rgb8', 'yuv420', 'yuv420h'))
     parser.add_argument('--pc_transfer', type=str, default='float32',
                         choices=('float32', 'quantized'))
     # Scene-sharded job (run_sharded): per-sequence units, a JSON-lines

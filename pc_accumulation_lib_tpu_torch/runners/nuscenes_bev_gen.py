@@ -270,7 +270,8 @@ def main(argv=None):
     parser.add_argument('--bevs_per_sample', type=int, default=1)
     parser.add_argument('--bev_horizon_dist', type=float, default=80)
     parser.add_argument('--bev_dist_between_samples', type=float, default=1.)
-    parser.add_argument('--bev_type', type=str, default='sem')
+    parser.add_argument('--bev_type', type=str, default='sem',
+                        choices=('sem', 'rgb'))
     parser.add_argument('--bev_view_size', type=float, default=80)
     parser.add_argument('--bev_pixel_size', type=int, default=256)
     parser.add_argument('--bev_max_trans_radius', type=float, default=0)
@@ -284,10 +285,11 @@ def main(argv=None):
     parser.add_argument('--manifest', type=str, default=None)
     parser.add_argument('--shard_idx', type=int, default=0)
     parser.add_argument('--num_shards', type=int, default=1)
+    # Camera and point wires (ops/imgcodec.py, accum/pointpack.py).
     parser.add_argument('--img_transfer', type=str, default='rgb8',
-                        choices=('rgb8',))
+                        choices=('rgb8', 'yuv420', 'yuv420h'))
     parser.add_argument('--pc_transfer', type=str, default='float32',
-                        choices=('float32',))
+                        choices=('float32', 'quantized'))
     args = parser.parse_args(argv)
 
     from pc_accumulation_lib_tpu_torch.models.semseg import load_semseg_model

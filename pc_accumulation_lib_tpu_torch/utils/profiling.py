@@ -1,12 +1,16 @@
-"""Per-phase wall-clock aggregation (the JAX package's utils/profiling.py
-PhaseTimer; its jax.profiler trace context has no counterpart here:
-device traces come from torch.profiler)."""
+"""Per-phase wall-clock aggregation and a device trace context.
+
+Counterpart of utils/profiling.py: PhaseTimer, and device_trace over
+torch.profiler where the JAX package's is over jax.profiler."""
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
 
 class PhaseTimer:
@@ -40,3 +44,19 @@ class PhaseTimer:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """torch.profiler trace of the block (host and, where there is a
+    card, CUDA activity), written to ``log_dir`` as a Chrome trace;
+    nothing when log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -48,7 +48,11 @@ def runs(tmp_path_factory):
     port = [w.load(tmp, f'mesh_r{r}') for r in range(N)]
 
     mesh = mesh_mod.make_mesh((1, N), devices=jax.devices()[:N])
-    pts, valid, fids = (jnp.asarray(a) for a in w.make_points(0))
+    # JAX's P('points') cuts contiguous blocks; given the rows in the
+    # port's dealt order, each device holds the port rank's rows, so the
+    # routing counters compare exactly.
+    pts, valid, fids = (jnp.asarray(w.dealt(a, N))
+                        for a in w.make_points(0))
     sp, sv, sf = sharded.shard_points_to_mesh(mesh, pts, valid, fids)
     inst = jnp.zeros(4, jnp.float32)
     params = _jax_params()
@@ -184,13 +188,27 @@ def test_multistream_matches_jax(runs):
 def test_shard_points_to_mesh(runs):
     port, _ = runs
     pts, valid, fids = w.make_points(0)
-    m = w.M // N
     for r in range(N):
         sp, sv, sf = port[r]['shard']
-        sl = slice(r * m, (r + 1) * m)
-        np.testing.assert_array_equal(sp, pts[sl])
-        np.testing.assert_array_equal(sv, valid[sl])
-        np.testing.assert_array_equal(sf, fids[sl])
+        np.testing.assert_array_equal(sp, pts[r::N])       # row i -> i % N
+        np.testing.assert_array_equal(sv, valid[r::N])
+        np.testing.assert_array_equal(sf, fids[r::N])
+
+
+@pytest.mark.parametrize('case', sorted(w.GROWTH))
+def test_step_window_growth_fits_4_ranks(runs, case):
+    """step()'s compacted buffer holds its live rows at the front. A
+    first tile raster on a small window calibrates the route; the grown
+    window ('full': every row live) must still fit it, since the rows are
+    dealt strided over the 4 ranks and the factor covers a full window.
+    Its maps equal the one-device raster's."""
+    port, _ = runs
+    err, stack, one, factor, (peak, cap) = port[0]['growth'][case]
+    assert err is None, err
+    assert 1.0 <= factor < 4.0 and 0 < peak <= cap
+    _maps_close(stack, one, True)
+    for r in range(1, N):
+        np.testing.assert_array_equal(port[r]['growth'][case][1], stack)
 
 
 def test_dryrun_multichip_4():

@@ -81,6 +81,14 @@ def raster_params(stream=0):
     return p._replace(rot_ang=0.3 * stream, trans_dx=0.5 * stream)
 
 
+def dealt(a, n):
+    """``a``'s rows in the order shard_points_to_mesh deals them: rank
+    0's (rows 0, n, 2n, ...), then rank 1's, ...; cut into n contiguous
+    blocks, this is each rank's shard."""
+    a = np.asarray(a)
+    return a.reshape((-1, n) + a.shape[1:]).swapaxes(0, 1).reshape(a.shape)
+
+
 def _shard(pts, valid, fids, r, n):
     m = pts.shape[0] // n
     sl = slice(r * m, (r + 1) * m)
@@ -156,6 +164,8 @@ def mesh_cases(rank, n, tmp):
     out['calib'] = seq
     out['calib_stacks'] = (stacks[0], stacks[-1])
 
+    out['growth'] = {c: window_growth(mesh, rank, c) for c in GROWTH}
+
     if n % 2 == 0 and n >= 4:
         mesh2 = pmesh.make_mesh((2, n // 2), device_type='cpu')
         ms = sharded.make_multistream_raster_fn(mesh2, 40.0, P, SEM_IDXS,
@@ -168,6 +178,51 @@ def mesh_cases(rank, n, tmp):
             torch.from_numpy(raster_params(d).pack())[None],
             True).float().numpy())
     save(tmp, f'mesh_r{rank}', out)
+
+
+# step() on a mesh rasters compact_window's buffer, whose live rows sit
+# at the front: a first raster on a small early window (it calibrates the
+# tile route), then on a grown window ('grown': half the rows live,
+# 'full': every row).
+GROWTH = {'grown': M // 2, 'full': M}
+GROWTH_FIRST = M // 16
+
+
+def window_rows(live):
+    """make_points(1)'s rows, none dynamic (every live row is keyed, as
+    in a compacted window), with only the first ``live`` valid."""
+    pts, _, fids = make_points(1)
+    pts[:, 9] = 0.0
+    return pts, np.arange(M) < live, fids
+
+
+def window_growth(mesh, rank, case):
+    """The tile engine on the first window, drained (it calibrates),
+    then on the grown one; returns (overflow message or None, the grown
+    window's stack, the one-device raster's stack on rank 0, the factor,
+    the route counters)."""
+    from pc_accumulation_lib_tpu_torch.bev import core
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    inst, params = torch.zeros(4), raster_params()
+    tile = sharded.make_tile_sharded_raster_fn(mesh, 40.0, P, SEM_IDXS, 20.,
+                                               20., 0.5)
+    stack = err = None
+    try:
+        for live in (GROWTH_FIRST, GROWTH[case]):
+            rows = [torch.from_numpy(a) for a in window_rows(live)]
+            shard = sharded.shard_points_to_mesh(
+                mesh, *(rows if rank == 0 else (None,) * 3))
+            stack = tile(*shard, inst, params, True).float().numpy()
+            tile.drain()
+    except sharded.TileRouteOverflow as e:
+        err = str(e)
+    one = None
+    if rank == 0:
+        one = core.make_raster_fn(40.0, P, SEM_IDXS, 20., 20., 0.5)(
+            *rows, inst, torch.from_numpy(params.pack()),
+            True).float().numpy()
+    return (err, stack, one, tile.dest_cap_factor,
+            (tile.route_peak_rows, tile.route_cap))
 
 
 # --- tests/test_torch_mesh_accum.py -------------------------------------
