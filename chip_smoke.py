@@ -27,7 +27,14 @@ the CPU at test size. It drives step() and the oracle accumulator again
 on the JAX bench's yuv420h / quantized upload wires, the KITTI-360 runner
 with the RGB BEV type, the legacy BEV pipeline on the runner's last
 window (card against CPU), and the mesh paths in spawned processes (two
-ranks, and step() on four) over gloo on the one card.
+ranks, and step() on four) over gloo on the one card. The JAX bench's
+download path: sparse_step_path (step() at the bench's sparse fetch
+configuration: prewarm_rungs, step(async_fetch=True) drained on a worker
+thread, samples held to the dense raster, the overflow fallback),
+kernels_on_sparse_path (both kernels on its rank-compacted keys),
+sparse_oracle_path (the oracle on the sparse fetch) and mesh_sparse (the
+sparse step() through the tile engine's group on two ranks, byte-equal
+to sparse_step_path's buffers).
 
     python3 chip_smoke.py
 
@@ -48,6 +55,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -863,6 +871,325 @@ def _fidelity(got, ref, prefixes=('rgb', 'intensity')):
     return out
 
 
+# --- the sparse fetch (the JAX bench's download path) --------------------
+#
+# The step() cell at the JAX bench's fetch configuration (bench.py:400-450,
+# 486, 560-580): main_path's accumulator with the sparse fetch, the bench's
+# per-split caps, its compact-rung ladder, fetch groups of 4, 'exact'
+# sizing and rank-compacted stats groups; prewarm_rungs after one warm-up
+# step, then N_STEPS step(async_fetch=True) calls, each drained one step
+# behind on a worker thread. The first fetch group of SPARSE_HELD_STEPS
+# (timed steps; the first sweeps a rung below compact_cap) is held to the
+# dense float16 raster on the same inputs: the u8 code of every channel
+# equal, elevation bit-exact. OVERFLOW_CAP forces the dense-words fallback
+# on one of them. One more step's dispatch runs under torch's sync debug
+# mode and must make no synchronizing CUDA call. The mesh phase's sparse
+# step() (MESH_SPARSE_STEPS steps) is held to the first steps' buffers.
+SPARSE_BEV = dict(BEV, fetch_dtype='sparse',
+                  sparse_cap=(20480, 10240, 10240), fetch_group=4)
+SPARSE_ACCUM = dict(ACCUM, compact_rungs=(393216, 655360, 860160))
+SPARSE_HELD_STEPS = (1, N_STEPS)
+OVERFLOW_CAP = 128
+MESH_SPARSE_STEPS = 3
+# The oracle cell on the sparse fetch (the JAX bench's oracle,
+# bench.py:144-149, 189: the default cap), its samples drained on a worker
+# thread; ORACLE_HELD timed samples held to the dense raster.
+ORACLE_SPARSE_BEV = dict(ORACLE_BEV, fetch_dtype='sparse')
+ORACLE_HELD = (0, ORACLE_FRAMES - ORACLE_WARMUP - 1)
+
+
+def _codes(stack):
+    """The u8 code of each [0,1] channel (round(x*255) of the clipped
+    value, the fetch's quantization) and the elevation channels' float16
+    bits of an (S*7, P, P) stack."""
+    x = np.asarray(stack, np.float16).reshape(-1, 7, *stack.shape[-2:])
+    u8 = np.round(np.clip(x[:, :6].astype(np.float32), 0, 1) * 255)
+    return u8.astype(np.uint8), x[:, 6].view(np.uint16)
+
+
+def _codes_equal(got, want, what):
+    """A decoded sparse stack against a float16 stack: every u8 code
+    equal, elevation bit-exact (the decode's empty-cell constants are the
+    codes' own values, so codes, not float16 values, are compared)."""
+    (gu, ge), (wu, we) = _codes(got), _codes(want)
+    bad = int((gu != wu).sum()) + int((ge != we).sum())
+    check(bad == 0, f'{what}: {bad} codes differ')
+
+
+def _bev_stack(b, gen_future=True):
+    """A BEV dict's maps back in the raster's (S*7, P, P) order."""
+    out = []
+    for s in ('present', 'future', 'full')[:3 if gen_future else 1]:
+        out += [b[f'road_{s}'], b[f'intensity_{s}'], *b[f'rgb_{s}'],
+                b[f'dynamic_{s}'], b[f'elevation_{s}']]
+    return np.stack(out)
+
+
+def _used_rows(sp, P):
+    """Each row of a (G, bytes) sparse group of P x P rasters on the host,
+    cut to its used bytes (what the fetch ships and the decode reads)."""
+    from pc_accumulation_lib_tpu_torch.bev import core
+    rows = sp.cpu().numpy()
+    return [r[:core.sparse_used_bytes(r, P, True)].copy() for r in rows]
+
+
+def _warp_of(aug9):
+    a = [float(v) for v in aug9.cpu()]
+    return dict(a1=a[4], a2=a[5], b1=a[6], b2=a[7], active=True)
+
+
+def phase_sparse_step_path(dev, main_res):
+    """The step() cell at the JAX bench's fetch configuration (the
+    constants above). Returns the result and the used bytes of each
+    sample of the first MESH_SPARSE_STEPS steps (warm-up included)."""
+    from pc_accumulation_lib_tpu_torch.bev import core, native_decode
+    from pc_accumulation_lib_tpu_torch.bev.sem_bev import SemBEVGenerator
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    P = SPARSE_BEV['pixel_size']
+    stream = SyntheticKitti360Stream(n_frames=N_STEPS + 2, **STREAM)
+    frames = [stream.frame(i) for i in range(N_STEPS + 2)]
+    accum = _make_accum(dev, SemSegTorch(dev, seed=0), STREAM, SPARSE_ACCUM,
+                        ICP, HORIZON, SPARSE_BEV, use_gt_sem=False)
+    gen = accum.sem_bev_generator
+    check(gen.fetch_sizing == 'exact' and gen._compact_groups,
+          (gen.fetch_sizing, gen._compact_groups))
+    # The fetch groups the grouped raster returns (step 0 is the warm-up;
+    # kept for the mesh phase's steps and the last), and the inputs of
+    # the held steps' first group.
+    cur, groups, held = [0], {}, {}
+    make_raster = gen.prepped_raster
+
+    def prepped_raster(grouped=False):
+        fn = make_raster(grouped)
+        if not grouped:
+            return fn
+
+        def run(*args):
+            out = fn(*args)
+            if cur[0] < MESH_SPARSE_STEPS or cur[0] == N_STEPS:
+                groups.setdefault(cur[0], []).append(out)
+            if cur[0] in SPARSE_HELD_STEPS and cur[0] not in held:
+                held[cur[0]] = args
+            return out
+        return run
+
+    gen.prepped_raster = prepped_raster
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        accum.integrate([frames[0]])
+        warm = accum.step([frames[1]], bev_num=BEV_NUM, gen_future=True)
+    t_pre = time.perf_counter()
+    cur[0] = -1                  # prewarm's rasters are nobody's samples
+    accum.prewarm_rungs(gen_future=True)
+    prewarm_s = time.perf_counter() - t_pre
+    stats_in = []
+    split_stats = sort_raster.split_stats_from_words_flat
+
+    def capture_stats(*args, **kwargs):
+        if not stats_in:
+            stats_in[:] = [args, kwargs]
+        return split_stats(*args, **kwargs)
+
+    def drain(handle):
+        bevs = handle()
+        return bevs, dict(gen.last_harvest)
+
+    shorts0 = gen.sparse_short_fetches
+    overflows0 = gen.sparse_overflows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ss.segmented_stats_words.launches = 0
+    native_decode.decode_sparse_warp.decoded = 0
+    steps, iter_s = [], []
+    ts = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(max_workers=1) as ex, \
+                contextlib.redirect_stdout(log):
+            fut = None
+            for i, f in enumerate(frames[2:]):
+                ti = time.perf_counter()
+                cur[0] = i + 1
+                if cur[0] == N_STEPS:   # the last step, the largest window
+                    sort_raster.split_stats_from_words_flat = capture_stats
+                try:
+                    handle = accum.step([f], bev_num=BEV_NUM,
+                                        gen_future=True, async_fetch=True)
+                finally:
+                    sort_raster.split_stats_from_words_flat = split_stats
+                nxt = ex.submit(drain, handle)
+                if fut is not None:
+                    steps.append(fut.result())
+                fut = nxt
+                iter_s.append(time.perf_counter() - ti)
+            steps.append(fut.result())
+        torch.cuda.synchronize()
+    finally:
+        gen.prepped_raster = make_raster
+    loop_s = time.perf_counter() - ts
+    launches = ss.segmented_stats_words.launches
+    decoded = native_decode.decode_sparse_warp.decoded
+    peak = torch.cuda.max_memory_allocated()
+    n = BEV_NUM * N_STEPS
+    check(launches == n, f'{launches} kernel-1 launches in {N_STEPS} steps')
+    check(decoded == n, f'the native decoder decoded {decoded} of {n}')
+    check(gen.sparse_overflows == overflows0, 'a sample overflowed its cap')
+    occ = [_check_bevs(bevs, P) for bevs, _ in steps]
+    check(min(occ) > 0, occ)
+    # The held samples against the dense float16 raster on the same
+    # inputs (no compaction, no sparse pack).
+    dense_fn = core.make_prepped_raster_fn(
+        SPARSE_BEV['view_size'], P, SPARSE_BEV['int_scaler'],
+        SPARSE_BEV['int_sep_scaler'], SPARSE_BEV['int_mid_threshold'])
+    held_rungs = {}
+    for i, (ref, valid, fids, pk, pk2, pose_vec, aug9s, gf) in held.items():
+        held_rungs[i] = int(ref.shape[0])
+        for r in range(aug9s.shape[0]):
+            dense = dense_fn(ref, valid, fids, pk, pk2, (pose_vec, aug9s[r]),
+                             gf).cpu().numpy()
+            _codes_equal(_bev_stack(steps[i - 1][0][r]), dense,
+                         f'step {i} sample {r}')
+    check(len(held) == len(SPARSE_HELD_STEPS)
+          and min(held_rungs.values()) < ACCUM['compact_cap'], held_rungs)
+    # One raster past a 128-cell cap: the dense-words fallback, the same
+    # codes as the dense raster and the step's own sample.
+    ref, valid, fids, pk, pk2, pose_vec, aug9s, gf = held[N_STEPS]
+    over = core.make_prepped_raster_fn(
+        SPARSE_BEV['view_size'], P, SPARSE_BEV['int_scaler'],
+        SPARSE_BEV['int_sep_scaler'], SPARSE_BEV['int_mid_threshold'],
+        pack='sparse', sparse_cap=OVERFLOW_CAP, compact_groups=True)(
+        ref, valid, fids, pk, pk2, (pose_vec, aug9s[0]), gf)
+    gen128 = SemBEVGenerator(
+        gen.sem_idxs, gen.view_size, P, int_scaler=gen.int_scaler,
+        int_sep_scaler=gen.int_sep_scaler,
+        int_mid_threshold=gen.int_mid_threshold, fetch_dtype='sparse',
+        sparse_cap=OVERFLOW_CAP, device=dev)
+    fell_back = gen128._fetch_stack(over, True, _warp_of(aug9s[0]))
+    check(gen128.sparse_overflows == 1, gen128.sparse_overflows)
+    _codes_equal(fell_back, _bev_stack(steps[N_STEPS - 1][0][0]),
+                 'overflow fallback')
+    # Host decode + warp of one sample alone (the native decoder).
+    raw = _used_rows(groups[N_STEPS][0][0], P)[0]
+    w0 = _warp_of(aug9s[0])
+    decode_ms = _median_ms_host(lambda: native_decode.decode_sparse_warp(
+        raw, True, P, gen.sparse_cap, gen._sparse_empty, w0))
+    harvests = [h for _, h in steps]
+    wire = sum(h['wire_bytes'] for h in harvests)
+    fallback_bytes = core.sparse_buffer_bytes(P, True, gen.sparse_cap,
+                                              True)[1]
+    steady = statistics.median(iter_s[1:])
+    res = dict(
+        steps=N_STEPS, bev_num=BEV_NUM, launches=launches,
+        native_decoded=decoded, iteration_s=iter_s,
+        median_iteration_s=steady, main_path_median_step_s=main_res[
+            'median_step_s'],
+        samples_per_s=n / loop_s, main_path_samples_per_s=main_res[
+            'samples_per_s'], prewarm_s=prewarm_s,
+        rungs_used={str(k): v for k, v in sorted(accum.rungs_used.items())},
+        held_rungs=held_rungs, held_samples=sum(
+            a[6].shape[0] for a in held.values()),
+        max_live_rows=accum.max_live_rows,
+        max_occupied_split=gen.max_occupied_split,
+        mean_occupied_split=[s / max(gen.n_occupied_obs, 1)
+                             for s in gen.sum_occupied_split],
+        sparse_cap=list(gen.sparse_cap),
+        sparse_short_fetches=gen.sparse_short_fetches - shorts0,
+        sparse_overflows=gen.sparse_overflows - overflows0,
+        wire_bytes_per_sample=wire / n,
+        fallback_bytes_per_sample=fallback_bytes,
+        float16_bytes_per_sample=21 * P * P * 2,
+        resolved_by=[h['resolved_by'] for h in harvests],
+        harvest_work_ms_per_sample=1e3 * sum(h['work_s'] for h in harvests)
+        / n, native_decode_warp_ms_per_sample=decode_ms,
+        max_memory_allocated_bytes=peak, occupied_cell_fraction=occ,
+        overflow_fallback=dict(cap=OVERFLOW_CAP,
+                               sparse_overflows=gen128.sparse_overflows))
+    # One more step's dispatch under the sync debug mode: a synchronizing
+    # call there would stall the host until the device queue drains.
+    cur[0] = -1
+    with warnings.catch_warnings(record=True) as syncs, \
+            contextlib.redirect_stdout(log):
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            handle = accum.step([frames[-1]], bev_num=BEV_NUM,
+                                gen_future=True, async_fetch=True)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        handle()
+    # (Setting the mode also warns once that it is a prototype.)
+    syncs = [w for w in syncs
+             if 'synchronizing CUDA operation' in str(w.message)]
+    sites = sorted({f'{w.filename}:{w.lineno}' for w in syncs})
+    check(not syncs, f'synchronizing calls in a sparse dispatch: {sites}')
+    res['dispatch_sync_calls'] = len(syncs)
+    gen.close()
+    gen128.close()
+    first = {i: [r for out in groups[i] for r in _used_rows(out[0], P)]
+             for i in range(MESH_SPARSE_STEPS)}
+    check(len(warm) == BEV_NUM, len(warm))
+    emit('sparse_step_path', t0, **res)
+    return res, stats_in, first
+
+
+def phase_kernel_on_sparse_path(stats_in):
+    """Both kernels on the rank-compacted keys of one raster of
+    sparse_step_path's last step (its stats-stage inputs as the path gave
+    them): each against its plain version and timed; kernel 1 timed on
+    the same rows with the dense cell keys too; the stats stage's
+    unpacked route (kernel 2) replayed on the inputs and held to the
+    words route (maps equal, intensity rtol 1e-5)."""
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    t0 = time.perf_counter()
+    args, kwargs = stats_in
+    c2, packed, packed2, n_cells, gen_future = args[:5]
+    check(kwargs.get('compact_groups') and gen_future, kwargs)
+    sent = n_cells * 2
+    s_c2, order = torch.sort(c2)
+    g = sort_raster._rank_keys(s_c2, 2, sent)
+    w1, w2 = packed[order], packed2[order]
+    case2 = _rows_case(g, w1, w2, sent)
+    kw = dict(kwargs, compact_groups=True)
+    words = sort_raster.split_stats_from_words_flat(
+        c2, packed, packed2, n_cells, True, **dict(kw, words_kernel=True))
+    torch.cuda.synchronize()
+    ss.segmented_stats.launches = 0
+    unpacked = sort_raster.split_stats_from_words_flat(
+        c2, packed, packed2, n_cells, True, **dict(kw, words_kernel=False))
+    torch.cuda.synchronize()
+    k2_launches = ss.segmented_stats.launches
+    check(k2_launches == 1, k2_launches)
+    route_err = 0.0
+    for k, v in words.items():
+        u = unpacked[k]
+        if k.startswith('intensity'):
+            check(torch.allclose(u, v, rtol=INTENSITY_RTOL, atol=1e-6), k)
+        else:
+            check(torch.equal(u, v), k)
+        route_err = max(route_err, _max_abs(u.float(), v.float()))
+    res = dict(max_abs_err=_compare(ss, g, w1, w2, sent),
+               **_time_pair(ss, g, w1, w2, sent), **_shape(g, sent),
+               timing=_time_words(ss, g, w1, w2, sent),
+               dense_keys=dict(**_shape(s_c2, sent),
+                               timing=_time_words(ss, s_c2, w1, w2, sent)),
+               kernel2=dict(max_abs_err=_compare2(ss, case2),
+                            **_time_turns(
+                                lambda: ss.segmented_stats(**case2),
+                                lambda: ss.segmented_stats_reference(
+                                    **case2)),
+                            timing=_time_rows(ss, case2)),
+               compact_unpacked_kernel2_launches=k2_launches,
+               words_vs_unpacked_max_abs=route_err)
+    emit('kernels_on_sparse_path', t0, **res)
+    return res
+
+
 def phase_wire_path(dev, main_bevs, frames, rgb8_accum):
     """main_path's drive with the camera image on the JAX bench's wire
     ('yuv420h', the points at 7 B/point as before): encoded on the host,
@@ -1456,14 +1783,23 @@ def _check_tracking(accum):
 
 
 def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
-                      name='oracle_path'):
+                      name='oracle_path', bev=ORACLE_BEV, reference=None):
     """The NuScenes oracle-pose accumulator at the JAX bench's oracle
     configuration, on the given camera and point wires: per frame the
     next frame's upload, integrate (wire decode, 6-camera semseg, paint,
     insert, tracking, the dyn-table update) and generate_bev of the
     previous pose, whose samples are harvested one frame later. Returns
-    the result and the stats-stage inputs of the last raster."""
+    the result and the stats-stage inputs of the last raster.
+
+    With the sparse fetch (``bev``) each frame's samples are drained on a
+    worker thread, the native decoder must decode every one, and the
+    ORACLE_HELD samples are held to the dense float16 raster on their
+    captured inputs (u8 codes equal, elevation bit-exact); ``reference``
+    is oracle_path's result, whose rate is printed beside."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.bev import core, native_decode
     from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
         NuScenesOracleSemanticPointCloudAccumulator)
     from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
@@ -1477,7 +1813,7 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     semseg = SemSegTorch(dev, seed=0)
     accum = NuScenesOracleSemanticPointCloudAccumulator(
         semseg_model=semseg, semseg_filters=NUSCENES_FILTERS,
-        bev_params=dict(ORACLE_BEV), loc='synth', get_gt_lanes=True,
+        bev_params=dict(bev), loc='synth', get_gt_lanes=True,
         gt_lane_poses=_oracle_lane(stream, ORACLE_FRAMES),
         accum_cfg=cfg.AccumConfig(**ORACLE_ACCUM), seed=0,
         img_transfer=img_transfer, transfer_dtype=transfer_dtype,
@@ -1491,10 +1827,32 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     torch.cuda.synchronize()
     stats_in = []
     split_stats = sort_raster.split_stats_from_words_flat
+    sparse = bev['fetch_dtype'] == 'sparse'
+    gen = accum.sem_bev_generator
+    raster, calls, held = gen._raster, [0], {}
 
     def capture_stats(*args, **kwargs):
         stats_in[:] = [args, kwargs]
         return split_stats(*args, **kwargs)
+
+    def capture_raster(*args):
+        # The held samples' inputs; the buffer is written in place by
+        # later frames, so they are copied.
+        if calls[0] in ORACLE_HELD:
+            held[calls[0]] = [a.clone() for a in args[:5]] + [args[5]]
+        calls[0] += 1
+        return raster(*args)
+
+    if sparse:
+        gen._raster = capture_raster
+        native_decode.decode_sparse_warp.decoded = 0
+    ex = ThreadPoolExecutor(max_workers=1) if sparse else None
+    wire = []
+
+    def drained(handle):
+        out = handle()      # in the worker: its finalizes run one by one
+        wire.append(gen.last_harvest['wire_bytes'])
+        return out
 
     # Per frame: wall-clock, CUDA events around integrate and the
     # generate_bev dispatch (device spans), and host time of integrate,
@@ -1519,6 +1877,8 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
                 handle = accum.generate_bev(
                     present_idx=len(accum.poses) - 2, bev_num=1,
                     gen_future=True, async_fetch=True)
+                if ex is not None:     # drained on the worker thread
+                    handle = ex.submit(drained, handle).result
                 ev[2].record()
                 tu = time.perf_counter()
                 if i + 1 < ORACLE_FRAMES:
@@ -1537,6 +1897,9 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
             frame_s[-1] += time.perf_counter() - tf
     finally:
         sort_raster.split_stats_from_words_flat = split_stats
+        gen._raster = raster
+        if ex is not None:
+            ex.shutdown()
     loop_s = time.perf_counter() - ts
     launches = ss.segmented_stats_words.launches
     peak = torch.cuda.max_memory_allocated()
@@ -1548,6 +1911,29 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     tracking = _check_tracking(accum)
     check(accum.max_painted <= accum.accum_cfg.painted_cap,
           accum.max_painted)
+    if sparse:
+        decoded = native_decode.decode_sparse_warp.decoded
+        check(decoded == len(samples) and gen.sparse_overflows == 0,
+              (decoded, gen.sparse_overflows))
+        P = bev['pixel_size']
+        dense_fn = core.make_raster_fn(
+            bev['view_size'], P, accum.sem_idxs, bev['int_scaler'],
+            bev['int_sep_scaler'], bev['int_mid_threshold'])
+        check(sorted(held) == list(ORACLE_HELD), sorted(held))
+        for i, args in held.items():
+            _codes_equal(_bev_stack(samples[i]), dense_fn(*args).cpu()
+                         .numpy(), f'oracle sample {i}')
+        tracking.update(
+            native_decoded=decoded, held_samples=sorted(held),
+            sparse_cap=gen.sparse_cap,
+            max_occupied_split=gen.max_occupied_split,
+            sparse_short_fetches=gen.sparse_short_fetches,
+            sparse_overflows=gen.sparse_overflows,
+            wire_bytes_per_sample=sum(wire) / len(wire),
+            float16_bytes_per_sample=21 * P * P * 2)
+        if reference is not None:
+            tracking['oracle_path_samples_per_s_median'] = reference[
+                'samples_per_s_median']
     integrate_ms = [a.elapsed_time(b) for a, b, _ in spans]
     generate_ms = [b.elapsed_time(c) for _, b, c in spans]
     # The 6-camera semseg forward alone (uint8 -> float on the device and
@@ -2238,6 +2624,8 @@ def _mesh_plan(dev):
     ones)."""
     return dict(dev=str(dev), stream=STREAM, accum=ACCUM, icp=ICP,
                 horizon=HORIZON, bev=BEV, bev_num=BEV_NUM, steps=N_STEPS,
+                sparse_bev=SPARSE_BEV, sparse_accum=SPARSE_ACCUM,
+                sparse_steps=MESH_SPARSE_STEPS,
                 runner_frames=RUNNER_FRAMES, runner_accum={},
                 sampling=None, semseg={},
                 train_steps={str(torch.float64): TRAIN_MESH_STEPS_FLOAT64,
@@ -2559,6 +2947,76 @@ def _mesh_step(rank, n, tmp, plan, dev):
     return out
 
 
+def _mesh_sparse(rank, n, tmp, plan, dev):
+    """sparse_step_path's accumulator on a (1, n) mesh: the sparse fetch
+    through the tile engine's group (one request to the workers per fetch
+    group of 4), MESH_SPARSE_STEPS step(bev_num=16) calls, rank 0
+    integrating. Rank 0 times each group request (synchronized) and saves
+    each sample's used bytes, step by step, as mesh_sparse_rows."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticKitti360Stream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh((1, n), device_type=dev.type)
+    out = {}
+    _sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    ss.segmented_stats_words.launches = 0
+    if sharded.is_controller(mesh):
+        try:
+            # sparse_step_path's stream (its length shapes the world),
+            # its first frames.
+            k = plan['sparse_steps']
+            stream = SyntheticKitti360Stream(n_frames=plan['steps'] + 2,
+                                             **plan['stream'])
+            frames = [stream.frame(i) for i in range(k + 1)]
+            accum = _make_accum(dev, SemSegTorch(dev, seed=0,
+                                                 **plan['semseg']),
+                                plan['stream'], plan['sparse_accum'],
+                                plan['icp'], plan['horizon'],
+                                dict(plan['sparse_bev'], mesh=mesh),
+                                use_gt_sem=False)
+            client = accum.sem_bev_generator.mesh_raster
+            group, rows, group_ms = client.group, [], []
+
+            def timed_group(pose_vec, aug9s, gen_future):
+                _sync(dev)
+                ts = time.perf_counter()
+                sp, dn = group(pose_vec, aug9s, gen_future)
+                _sync(dev)
+                group_ms.append((time.perf_counter() - ts) * 1e3)
+                rows[-1] += _used_rows(sp, plan['sparse_bev']['pixel_size'])
+                return sp, dn
+
+            client.group = timed_group
+            accum.integrate([frames[0]])
+            try:
+                for f in frames[1:]:
+                    rows.append([])
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        accum.step([f], bev_num=plan['bev_num'],
+                                   gen_future=True)
+            finally:
+                accum.sem_bev_generator.close()
+            _save(tmp, 'mesh_sparse_rows', rows)
+            out.update(group_ms=group_ms,
+                       median_group_ms=statistics.median(group_ms),
+                       rungs_used={str(r): c for r, c in
+                                   accum.rungs_used.items()})
+        finally:
+            sharded.shutdown_mesh_workers(mesh)
+    else:
+        sharded.serve_mesh_rasters(mesh)
+    _sync(dev)
+    out['launches'] = ss.segmented_stats_words.launches
+    out['seconds'] = time.perf_counter() - t0
+    return out
+
+
 def _training_probe(make_setup, rec, dev, dtype):
     """A make_train_setup whose model, convolutions and optimizer are in
     ``dtype`` and whose steps record their time and, after step 1, the
@@ -2817,7 +3275,7 @@ def _train_held(dp, one):
         worst_gradients=sorted(grads, key=grads.get)[-3:])
 
 
-def phase_mesh(dev, main_bevs, runner_samples, plan=None):
+def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
     """The mesh paths on a world of MESH_RANKS ranks on this card (gloo):
     the KITTI-360 runner at run()'s defaults on runner_path's 120 frames,
     its samples held to runner_path's, file for file (road, dynamic, rgb
@@ -2826,7 +3284,10 @@ def phase_mesh(dev, main_bevs, runner_samples, plan=None):
     bench configuration for 9 steps, held to main_path's samples by the
     step() rule; train_semseg.run data-parallel at full width against a
     one-card run, in float64 (held) and float32 (timed; TRAIN_MESH_STEPS'
-    comment); GPipe on a pp = 2 mesh against the sequential stack."""
+    comment); GPipe on a pp = 2 mesh against the sequential stack; the
+    sparse step() through the tile engine's group (mesh_sparse), its
+    samples' used bytes equal to sparse_step_path's first steps'
+    (``sparse_rows``) byte for byte."""
     plan = plan or _mesh_plan(dev)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2841,9 +3302,10 @@ def phase_mesh(dev, main_bevs, runner_samples, plan=None):
                                   dt)
                for dt in (torch.float64, torch.float32)}
         ranks = _spawn_world(MESH_RANKS, 'gloo', tmp, plan,
-                             ('runner', 'step', 'train', 'gpipe'))
+                             ('runner', 'step', 'train', 'gpipe', 'sparse'))
         mesh_samples = _read_samples(os.path.join(tmp, 'mesh_runner'))
         step_bevs = _load(tmp, 'mesh_step_bevs')
+        mesh_rows = _load(tmp, 'mesh_sparse_rows')
         dp = _load(tmp, 'mesh_train')
     runner = ranks[0]['runner']
     n = runner['bevs']
@@ -2911,7 +3373,28 @@ def phase_mesh(dev, main_bevs, runner_samples, plan=None):
         check(held32[name] <= 1.0, ('float32', name, held32[name]))
     emit('gpipe', t0, stages=MESH_RANKS, atol=PIPE_ATOL,
          **{f'rank{r}': ranks[r]['gpipe'] for r in range(MESH_RANKS)})
-    return launches, step_launches
+    sparse = ranks[0]['sparse']
+    sparse_launches = [r['sparse']['launches'] for r in ranks]
+    expect = plan['bev_num'] * plan['sparse_steps']
+    check(all(x == expect for x in sparse_launches),
+          ('sparse launches', sparse_launches))
+    check(len(mesh_rows) == plan['sparse_steps'], len(mesh_rows))
+    for i, step_rows in enumerate(mesh_rows):
+        check(len(step_rows) == len(sparse_rows[i]) == plan['bev_num'],
+              (i, len(step_rows), len(sparse_rows[i])))
+        for j, (a, b) in enumerate(zip(step_rows, sparse_rows[i])):
+            check(a.tobytes() == b.tobytes(),
+                  f'mesh sparse step {i} sample {j}: bytes differ')
+    emit('mesh_sparse', t0, ranks=MESH_RANKS, backend='gloo (both ranks '
+         'share one card)', steps=plan['sparse_steps'],
+         launches_per_rank=sparse_launches,
+         samples_byte_equal=expect,
+         used_bytes_per_sample=float(np.mean(
+             [r.size for step in mesh_rows for r in step])),
+         world_seconds=sparse['seconds'],
+         **{k: sparse[k] for k in ('group_ms', 'median_group_ms',
+                                   'rungs_used')})
+    return launches, step_launches, sparse_launches
 
 
 def phase_mesh_step4(dev, main_bevs, plan=None):
@@ -3009,6 +3492,10 @@ def main():
     del frames, accum
     on_path = phase_kernel_on_main_path(raster_in)
     del raster_in
+    sparse, sparse_stats_in, sparse_rows = phase_sparse_step_path(dev,
+                                                                  main_res)
+    on_sparse = phase_kernel_on_sparse_path(sparse_stats_in)
+    del sparse_stats_in
     runner, samples, stats_in, runner_raster_in, window = \
         phase_runner_path(dev)
     on_runner = phase_kernel2_on_runner_path(stats_in,
@@ -3024,6 +3511,9 @@ def main():
     oracle, oracle_stats_in = phase_oracle_path(dev)
     oracle_wire = phase_oracle_path(dev, 'yuv420h', 'quantized',
                                     'oracle_wire_path')[0]
+    oracle_sparse = phase_oracle_path(dev, name='sparse_oracle_path',
+                                      bev=ORACLE_SPARSE_BEV,
+                                      reference=oracle)[0]
     on_oracle = phase_kernel2_on_runner_path(
         oracle_stats_in, oracle['rows_per_raster'],
         phase='kernels_on_oracle_path')
@@ -3035,20 +3525,26 @@ def main():
         phase_train_path(dev, tmp)
         phase_pc_accum(dev, tmp)
     phase_gpu_vs_cpu_train(dev)
-    mesh_runner, mesh_step = phase_mesh(dev, main_bevs, samples)
+    mesh_runner, mesh_step, mesh_sparse = phase_mesh(dev, main_bevs, samples,
+                                                     sparse_rows)
+    del sparse_rows
     mesh_step4 = phase_mesh_step4(dev, main_bevs)
     del main_bevs, samples
     phase_dryrun(dev)
     phase_mesh_nccl(dev)
-    # Each kernel's timing at four shapes: made-up bench raster rows, a
-    # step() raster's rows, a KITTI-360 runner raster's rows, an oracle
-    # raster's rows.
+    # Each kernel's timing at five shapes: made-up bench raster rows, a
+    # step() raster's rows (dense cell keys, and rank-compacted keys on the
+    # sparse path), a KITTI-360 runner raster's rows, an oracle raster's
+    # rows.
     shapes = {'segmented_stats_words': dict(
         bench=kern['timing'], step_raster=on_path['timing'],
+        step_raster_compact=on_sparse['timing'],
+        step_raster_compact_dense_keys=on_sparse['dense_keys']['timing'],
         runner_raster=on_runner['kernel1']['timing'],
         oracle_raster=on_oracle['kernel1']['timing']),
         'segmented_stats': dict(
         bench=kern2['timing'], step_raster=on_path['kernel2']['timing'],
+        step_raster_compact=on_sparse['kernel2']['timing'],
         runner_raster=on_runner['kernel2']['timing'],
         oracle_raster=on_oracle['kernel2']['timing'])}
     emit('kernel_timing', time.perf_counter(), **shapes)
@@ -3057,6 +3553,7 @@ def main():
         _kernel_entry('segmented_stats_words', KERNEL_REPLACES,
                       runner['launches'],
                       max(kern['max_abs_err'], on_path['max_abs_err'],
+                          on_sparse['max_abs_err'],
                           on_runner['kernel1']['max_abs_err'],
                           on_oracle['kernel1']['max_abs_err']),
                       on_runner['kernel1'],
@@ -3072,16 +3569,23 @@ def main():
                        'nuscenes_runner_icp_wire':
                            oracle_wire['icp_frame']['launches'],
                        'kitti360_runner_rgb': rgb_runner['launches'],
-                       'step_mesh4': mesh_step4}),
+                       'step_mesh4': mesh_step4,
+                       'step_sparse': sparse['launches'],
+                       'nuscenes_oracle_sparse': oracle_sparse['launches'],
+                       'step_sparse_mesh2': mesh_sparse}),
         _kernel_entry('segmented_stats', KERNEL2_REPLACES,
                       runner2['kernel2_launches'],
                       max(kern2['max_abs_err'],
                           on_path['kernel2']['max_abs_err'],
+                          on_sparse['kernel2']['max_abs_err'],
                           on_runner['kernel2']['max_abs_err'],
                           on_oracle['kernel2']['max_abs_err']),
                       on_runner['kernel2'],
                       {'kitti360_runner_unpacked':
-                       runner2['kernel2_launches']})]}), flush=True)
+                       runner2['kernel2_launches'],
+                       'step_sparse_compact_unpacked':
+                       on_sparse['compact_unpacked_kernel2_launches']})]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -67,7 +67,9 @@ class SemanticPointCloudAccumulator:
                 fetch_dtype=bev_params.get('fetch_dtype', 'float16'),
                 mesh=bev_params.get('mesh'),  # point-sharded over its ranks
                 mesh_impl=bev_params.get('mesh_impl', 'auto'),
-                device=self.device)
+                device=self.device,
+                sparse_cap=bev_params.get('sparse_cap'),
+                fetch_group=bev_params.get('fetch_group', 4))
         elif bev_type == 'rgb':
             self.sem_bev_generator = RGBBEVGenerator(
                 bev_params.get('view_size', 80),

@@ -9,9 +9,14 @@ pose parameters) that reads and writes the accumulator's device state in
 place. The pose chain, the eviction window and the raster's pose
 parameters stay on the device between frames; the host reads one packed
 (37,) vector per frame for its bookkeeping, inside step()'s finalize.
+
+With ``AccumConfig.compact_rungs`` each step sweeps the smallest rung of
+a ladder that a host-side bound on the live rows proves sufficient, and
+``prewarm_rungs`` runs every rung's pieces once in warm-up.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -108,10 +113,24 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         if img_transfer not in (None, 'rgb8') + imgcodec.WIRES:
             raise ValueError(f'img_transfer={img_transfer!r}')
         self.img_transfer = img_transfer or 'rgb8'
-        if self.accum_cfg.compact_rungs:
-            raise NotImplementedError('AccumConfig.compact_rungs: the port '
-                                      'sweeps compact_cap rows (the rung '
-                                      'ladder is ROADMAP queue 1 item 4)')
+        # Compact-rung ladder (AccumConfig.compact_rungs): _live_ub is a
+        # host-side upper bound on the live rows, raised by painted_cap
+        # per dispatched frame and tightened a step behind from the
+        # counted rows; _cum_growth dates the bound so the tightening
+        # counts the frames dispatched since. The dispatching thread and
+        # a finalize on a worker thread both update it (_ub_lock).
+        self._live_ub = 0
+        self._cum_growth = 0
+        self._ub_lock = threading.Lock()
+        self._rungs = None
+        self.rungs_used = {}         # rung -> steps that swept it
+        ccap = self.accum_cfg.compact_cap
+        if ccap and self.accum_cfg.compact_rungs:
+            rungs = sorted(set(int(r) for r in self.accum_cfg.compact_rungs
+                               if r < ccap))
+            if any(r <= 0 for r in rungs):
+                raise ValueError('compact_rungs must be positive')
+            self._rungs = tuple(rungs) + (ccap,)
         if transfer_dtype not in ('float32', 'quantized'):
             raise ValueError(f'transfer_dtype={transfer_dtype!r}')
         self.transfer_dtype = transfer_dtype
@@ -288,6 +307,13 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         packed = self._integrate_frame(pc_pad, valid, aux, self.frame_count,
                                        first)
         self.frame_count += 1     # frame id reserved at dispatch
+        # The frame adds at most painted_cap live rows; eviction only
+        # takes rows away.
+        cap_g = self.accum_cfg.painted_cap
+        with self._ub_lock:
+            self._live_ub = min(self._live_ub + cap_g,
+                                self.accum_cfg.max_frames * cap_g)
+            self._cum_growth += cap_g
         packed_host = packed.to('cpu', non_blocking=True)
         landed = None
         if self.device.type == 'cuda':
@@ -330,40 +356,75 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
     # ------------------------------------------------------------------
     # Entry points
     # ------------------------------------------------------------------
-    def integrate(self, observations: list) -> int:
+    def integrate(self, observations: list, async_fetch: bool = False):
         """Integrate observations [(rgb, pc, sem_gt) or DeviceObs, ...];
-        returns the number of evicted frames."""
+        returns the number of evicted frames, or with ``async_fetch`` a
+        zero-arg callable that does the host bookkeeping and returns it
+        (all device work is queued first)."""
         handles = [self._dispatch_obs(obs) for obs in observations]
-        return sum(h() for h in handles)
+
+        def finalize() -> int:
+            return sum(h() for h in handles)
+
+        return finalize if async_fetch else finalize()
+
+    def _pick_rung(self, ccap: int, ax: int) -> int:
+        """The smallest rung the live-row bound proves sufficient (and,
+        on a mesh, that the points axis divides); compact_cap otherwise."""
+        if self._rungs is None:
+            return ccap
+        ub = min(self._live_ub, ccap)
+        rung = next((r for r in self._rungs if r >= ub and r % ax == 0),
+                    ccap)
+        self.rungs_used[rung] = self.rungs_used.get(rung, 0) + 1
+        return rung
 
     def step(self, observations: list, bev_num: int = 1,
-             gen_future: bool = True) -> list:
+             gen_future: bool = True, async_fetch: bool = False):
         """Integrate ``observations`` and generate ``bev_num`` augmented BEV
         samples at the 'latest-1' present policy (present_idx =
         len(poses) - 2). All device work is queued before the first host
-        wait. Returns the list of BEV dicts.
+        wait. Returns the list of BEV dicts, or with ``async_fetch`` a
+        zero-arg callable yielding it (the host bookkeeping, the checks and
+        the fetches happen in it, so a worker thread can drain a step while
+        the next one is dispatched).
 
         Without augmentation the rotation is heading-aligned, which needs
         the host poses: step() is then integrate() followed by
         generate_bev(present_idx=len(poses) - 2). With compact_cap unset
         each raster sweeps the whole flat buffer instead of the compacted
-        live window. On a mesh (bev_params['mesh']) the flat rows are
-        scattered over its points axis once per step and each sample is
-        the mesh engine's tuple-form raster (no prep)."""
+        live window; with compact_rungs, the smallest sufficient rung. On
+        a mesh (bev_params['mesh']) the flat rows are scattered over its
+        points axis once per step and each sample is the mesh engine's
+        tuple-form raster (no prep)."""
         gen = self.sem_bev_generator
         if not gen.do_aug:
-            self.integrate(observations)
-            return self.generate_bev(present_idx=len(self.poses) - 2,
-                                     bev_num=bev_num, gen_future=gen_future)
+            integrate_fn = self.integrate(observations, async_fetch=True)
+
+            def finalize_classic():
+                integrate_fn()
+                return self.generate_bev(present_idx=len(self.poses) - 2,
+                                         bev_num=bev_num,
+                                         gen_future=gen_future)
+
+            return finalize_classic if async_fetch else finalize_classic()
+        # Size the previous steps' sparse fetches first: their copies
+        # queue ahead of everything this step enqueues.
+        gen.resolve_ready_fetches()
         handles = [self._dispatch_obs(obs) for obs in observations]
         ccap = self.accum_cfg.compact_cap
+        ax = (1 if gen.mesh_raster is None
+              else pmesh.axis_size(gen.mesh_raster.mesh, 'points'))
         n_live = None
+        cum_at_dispatch = self._cum_growth
         if ccap:
             # Once-per-step live-window compaction: every raster sweeps
-            # ccap rows instead of max_frames * painted_cap.
+            # the rung's rows instead of max_frames * painted_cap.
+            ccap = self._pick_rung(ccap, ax)
             flat_pts, pt_fids, flat_valid, n_live = buffer.compact_window(
                 self.state, self._ws_dev, ccap)
-            n_live = n_live.to('cpu', non_blocking=True)
+            n_live = (n_live.to('cpu', non_blocking=True),
+                      self._event())
         else:
             f, n, d = self.state.points.shape
             flat_pts = self.state.points.view(f * n, d)
@@ -373,7 +434,6 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         if gen.mesh_raster is not None:
             # Scatter the flat snapshot over the points axis once per step;
             # each of the bev_num rasters then takes only its parameters.
-            ax = pmesh.axis_size(gen.mesh_raster.mesh, 'points')
             if flat_pts.shape[0] % ax:
                 raise ValueError(
                     f'step() on a mesh: flat point count {flat_pts.shape[0]}'
@@ -403,16 +463,75 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
         bev_handle = gen.generate_samples_device(
             flat_valid, pt_fids, self._pose_vec_dev, bev_num, gen_future,
             trajs_fn, prepped)
-        for h in handles:
-            h()
-        bevs = bev_handle()     # waits for the device, n_live's copy too
-        if n_live is None:
-            return bevs
-        nl = int(n_live)
-        self.max_live_rows = max(self.max_live_rows, nl)
-        if nl > ccap:
-            raise RuntimeError(
-                f'Live-window overflow: {nl} live buffer rows > the swept '
-                f'capacity compact_cap={ccap}; raise AccumConfig.compact_cap '
-                '(points must not be silently dropped).')
-        return bevs
+
+        def finalize():
+            for h in handles:
+                h()
+            if n_live is not None:
+                if n_live[1] is not None:
+                    n_live[1].synchronize()
+                nl = int(n_live[0])
+                self.max_live_rows = max(self.max_live_rows, nl)
+                if nl > ccap:
+                    raise RuntimeError(
+                        f'Live-window overflow: {nl} live buffer rows > the '
+                        f'swept capacity {ccap} (compact_cap='
+                        f'{self.accum_cfg.compact_cap}); raise '
+                        'AccumConfig.compact_cap (points must not be '
+                        'silently dropped).')
+                # nl is exact for the state at this step's dispatch; the
+                # frames dispatched since add at most painted_cap each.
+                with self._ub_lock:
+                    self._live_ub = min(
+                        self._live_ub,
+                        nl + (self._cum_growth - cum_at_dispatch))
+            return bev_handle()
+
+        return finalize if async_fetch else finalize()
+
+    def _event(self):
+        """An event recorded on the current stream (None on the CPU)."""
+        if self.device.type != 'cuda':
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @torch.no_grad()
+    def prewarm_rungs(self, fetch_group: Optional[int] = None,
+                      gen_future: bool = True, include_single: bool = True):
+        """Run every compact rung's step() pieces once (compact_window,
+        the prep and the grouped prepped raster, and with
+        ``include_single`` the single-sample raster that bev_num=1 takes)
+        on the current window with fixed draws, so the kernels' first-use
+        build and the caching allocator's blocks come in warm-up and not
+        at a rung crossing mid-run. The outputs are dropped; the
+        accumulator's and the generator's state, RNG and counters stay as
+        they were. Does nothing without rungs, before the first frame, or
+        on a mesh."""
+        gen = self.sem_bev_generator
+        if (self._rungs is None or self._pose_vec_dev is None
+                or gen.mesh_raster is not None):
+            return
+        G = max(1, gen.fetch_group if fetch_group is None else fetch_group)
+        hf = np.inf if gen.height_filter is None else gen.height_filter
+        aug = np.zeros((G, 9), np.float32)
+        aug[:, 3] = 1.0                      # identity zoom
+        aug[:, 5] = 1.0                      # warp a2 = 1
+        aug[:, 7] = 1.0                      # warp b2 = 1
+        aug[:, 8] = hf
+        aug = torch.as_tensor(aug, device=self.device)
+        gfn = gen.prepped_raster(grouped=True)
+        sfn = gen.prepped_raster() if include_single else None
+        for rung in self._rungs:
+            pts, fids, valid, _ = buffer.compact_window(
+                self.state, self._ws_dev, rung)
+            ref, packed, packed2 = gen.prep_points(pts, self.state.inst_dyn,
+                                                   self._pose_vec_dev)
+            gfn(ref, valid, fids, packed, packed2, self._pose_vec_dev, aug,
+                gen_future)
+            if sfn is not None:
+                sfn(ref, valid, fids, packed, packed2,
+                    (self._pose_vec_dev, aug[0]), gen_future)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)

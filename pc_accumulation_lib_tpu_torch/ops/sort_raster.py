@@ -15,7 +15,10 @@ same maps:
   * the pure-torch route (use_kernel=False): a 2-key sort by (c2, z),
     segment sums and boundary reads.
 
-The 'full' split is present (+/min) future.
+The 'full' split is present (+/min) future. On the kernel route with
+hist_medians, ``compact_groups`` renumbers the groups by occupied-cell
+rank (maps come back rank-indexed with a ``cell_of_rank`` table, for the
+sparse pack of bev/core).
 """
 from __future__ import annotations
 
@@ -201,6 +204,33 @@ def _pure_route(c2, packed, z, int_road, road_f, dyn_f, n_cells,
     return _emit_all(splits, med)
 
 
+def _rank_keys(s_c2, nsplit, sent):
+    """Rank-compacted keys of ascending keys ``s_c2``: each occupied
+    cell's rank among the occupied cells (head flags, then a cumsum;
+    rank order is ascending cell order) as rank*nsplit + is_future, and
+    the sentinel ``sent`` (>= the kernel's group count) for masked
+    rows."""
+    cell_s = torch.div(s_c2, nsplit, rounding_mode='floor')
+    head = torch.ones_like(cell_s)
+    head[1:] = (cell_s[1:] != cell_s[:-1]).to(cell_s.dtype)
+    rank = torch.cumsum(head, 0, dtype=torch.int32) - 1
+    return torch.where(s_c2 < sent, rank * nsplit + s_c2 % nsplit,
+                       sent).to(torch.int32)
+
+
+def _cell_of_rank(s_c2, lens, n_cells, nsplit):
+    """(n_cells,) int32 cell id of each rank, from the rank groups'
+    lengths: the sorted key at each rank's first row; n_cells for the
+    ranks past the last occupied cell."""
+    grp = lens.to(torch.int64).view(n_cells, nsplit).sum(-1)
+    if s_c2.numel() == 0:
+        return torch.full((n_cells,), n_cells, dtype=torch.int32,
+                          device=s_c2.device)
+    starts = (torch.cumsum(grp, 0) - grp).clamp(max=s_c2.numel() - 1)
+    cell = torch.div(s_c2[starts], nsplit, rounding_mode='floor')
+    return torch.where(grp > 0, cell, n_cells).to(torch.int32)
+
+
 def split_stats_from_words_flat(c2, packed, packed2, n_cells, gen_future,
                                 rgb_fill=0, use_kernel=True,
                                 hist_medians=True, words_kernel=True,
@@ -216,11 +246,18 @@ def split_stats_from_words_flat(c2, packed, packed2, n_cells, gen_future,
     kernel, False from (c2*256 + value) sorts. ``use_kernel=False`` is the
     pure-torch route (2-key sort by (c2, z)). Every statistic is
     order-free, so the sorts need not be stable. Returns
-    {channel_split: (n_cells,)} maps ((3, n_cells) for rgb)."""
-    if compact_groups:
-        raise NotImplementedError(
-            'compact_groups: the rank-compacted group space is not ported '
-            '(ROADMAP queue 1 item 4, the download half)')
+    {channel_split: (n_cells,)} maps ((3, n_cells) for rgb).
+
+    ``compact_groups`` (kernel route with hist_medians; ValueError
+    otherwise): the kernel's groups are the occupied cells' ranks
+    (rank*nsplit + is_future) instead of the cell space, so every keyed
+    row lands in the first groups and the empty tail costs nothing. The
+    maps come back rank-indexed, with an extra ``cell_of_rank`` (n_cells,)
+    int32 (n_cells for the dead ranks past the last occupied cell)."""
+    if compact_groups and not (use_kernel and hist_medians):
+        raise ValueError('compact_groups needs the kernel route with '
+                         'hist_medians (the median sorts read cell-space '
+                         'keys)')
     nsplit = 2 if gen_future else 1
     sent = n_cells * nsplit
     if not use_kernel:
@@ -229,16 +266,17 @@ def split_stats_from_words_flat(c2, packed, packed2, n_cells, gen_future,
 
     s_c2, order = torch.sort(c2)
     s_packed, s_p2 = packed[order], packed2[order]
+    g = _rank_keys(s_c2, nsplit, sent) if compact_groups else s_c2
     if words_kernel:
         st = segmented_stats.segmented_stats_words(
-            s_c2, s_packed, s_p2, sent, med_nsplit=nsplit,
+            g, s_packed, s_p2, sent, med_nsplit=nsplit,
             hist_medians=hist_medians)
     else:
         s_z, s_int, s_road, s_dyn = _unpack_words(s_packed, s_p2)
         value_rows = ([((s_packed >> shift) & 255).to(torch.float32)
                        for shift in (16, 8, 0)] if hist_medians else [])
         st = segmented_stats.segmented_stats(
-            s_c2, [torch.ones_like(s_road), s_road, s_dyn, s_int], s_z,
+            g, [torch.ones_like(s_road), s_road, s_dyn, s_int], s_z,
             sent, value_rows=value_rows, med_nsplit=nsplit)
     sums, zmin = st[0], st[1]
     lens = sums[:, 0]
@@ -252,7 +290,10 @@ def split_stats_from_words_flat(c2, packed, packed2, n_cells, gen_future,
         starts = ends - lens.to(torch.int32)
         med = _median_sorts(c2, packed, starts, ends, n_cells, nsplit,
                             gen_future, rgb_fill, splits[0])
-    return _emit_all(splits, med)
+    out = _emit_all(splits, med)
+    if compact_groups:
+        out['cell_of_rank'] = _cell_of_rank(s_c2, lens, n_cells, nsplit)
+    return out
 
 
 def _emit_all(splits, med):
@@ -265,16 +306,22 @@ def _emit_all(splits, med):
 
 
 def _to_maps(flat, P):
-    return {k: v.reshape((3, P, P) if v.dim() == 2 else (P, P))
+    return {k: v if k == 'cell_of_rank'
+            else v.reshape((3, P, P) if v.dim() == 2 else (P, P))
             for k, v in flat.items()}
 
 
 def split_stats_from_packed(c2, packed, packed2, pixel_size, gen_future,
-                            rgb_fill=0, hist_medians=True):
-    """(P,P)-shaped kernel-route wrapper over split_stats_from_words_flat."""
+                            rgb_fill=0, hist_medians=True,
+                            compact_groups=False):
+    """(P,P)-shaped kernel-route wrapper over split_stats_from_words_flat.
+    With ``compact_groups`` the maps are rank-indexed (the (P,P) shape is
+    a container) and the flat ``cell_of_rank`` rides along; only the
+    sparse pack takes that form (bev/core.emit_outputs)."""
     return _to_maps(split_stats_from_words_flat(
         c2, packed, packed2, pixel_size * pixel_size, gen_future,
-        rgb_fill=rgb_fill, hist_medians=hist_medians), pixel_size)
+        rgb_fill=rgb_fill, hist_medians=hist_medians,
+        compact_groups=compact_groups), pixel_size)
 
 
 def sorted_split_stats(cells, static_m, is_future, z, intensity, rgb, sem,

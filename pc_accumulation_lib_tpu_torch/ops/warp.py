@@ -1,8 +1,9 @@
 """Polynomial BEV warping augmentation.
 
-Counterpart of ops/warp.py: the numpy host helpers (warp parameter draws
-and the trajectory warp) and the dense map warp on tensors, a separable
-gather with per-axis source-index maps.
+Counterpart of ops/warp.py: the numpy host helpers (warp parameter draws,
+the trajectory warp, and the dense map warp the sparse fetch applies after
+its decode) and the dense map warp on tensors, a separable gather with
+per-axis source-index maps.
 """
 from __future__ import annotations
 
@@ -53,6 +54,30 @@ def warp_dense_maps(maps, a_1, a_2, b_1, b_2):
     rows = _poly_index_map(b_1, b_2, n_rows)
     cols = _poly_index_map(a_1, a_2, n_cols)
     return maps.index_select(-2, rows).index_select(-1, cols)
+
+
+def warp_index_maps_np(a_1, a_2, b_1, b_2, n_rows, n_cols):
+    """Host (numpy) source-index maps of the dense warp: (rows from the
+    b-params, columns from the a-params), int32, clip(rint(a1*k +
+    a2*k^2)) in float32 as warp_dense_maps computes them."""
+    def idx_map(a1, a2, n):
+        k = np.arange(n, dtype=np.float32)
+        src = np.rint(np.float32(a1) * k
+                      + np.float32(a2) * k * k).astype(np.int32)
+        return np.clip(src, 0, n - 1)
+    return idx_map(b_1, b_2, n_rows), idx_map(a_1, a_2, n_cols)
+
+
+def warp_dense_maps_np(maps, a_1, a_2, b_1, b_2):
+    """Host twin of warp_dense_maps on a numpy (..., I, J) stack: the
+    sparse fetch ships maps before the warp (the warp duplicates cells),
+    and the host warps after the decode. One flat gather."""
+    n_rows, n_cols = maps.shape[-2], maps.shape[-1]
+    ri, ci = warp_index_maps_np(a_1, a_2, b_1, b_2, n_rows, n_cols)
+    flat = (ri[:, None] * n_cols + ci[None, :]).reshape(-1)
+    lead = maps.shape[:-2]
+    out = maps.reshape(lead + (n_rows * n_cols,))[..., flat]
+    return out.reshape(lead + (n_rows, n_cols))
 
 
 def _inverse_quadratic(x, a_1, a_2):

@@ -4,7 +4,9 @@ Counterpart of parallel/sharded.py on torch.distributed. The flat point
 buffer is cut into equal shards, one per rank of the points axis; every
 rank rasters its shard and the ranks combine over the axis's process
 group, so each rank ends with the same (S*7, P, P) float16 stack as the
-one-device raster (bev/core.make_raster_fn). Two engines:
+one-device raster (bev/core.make_raster_fn), or with ``pack='sparse'``
+the same (sparse, dense-words fallback) pair of flat uint8 buffers. Two
+engines:
 
   * psum (make_sharded_raster_fn): per-shard accumulators (counts, sums,
     256-bin rgb histograms, z-min), summed (z-min: minimum) over the axis,
@@ -16,7 +18,8 @@ one-device raster (bev/core.make_raster_fn). Two engines:
     statistics with the one-device stats stage
     (ops/sort_raster.split_stats_from_words_flat: the words-form
     segmented-stats kernel on CUDA tensors), and the finished stripes are
-    gathered.
+    gathered. Its ``group`` rasters a fetch group of augmentation draws
+    into one stacked output.
 
 The engines are SPMD: every rank of the points axis calls them with its
 own shard, as jax.shard_map's body runs on every device. The accumulators
@@ -39,13 +42,6 @@ from pc_accumulation_lib_tpu_torch.ops import sort_raster
 from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
 
-def _no_sparse(pack):
-    if pack is not None:
-        raise NotImplementedError(
-            f'pack={pack!r}: the mesh rasters have the dense float16 '
-            'output only (the sparse fetch is ROADMAP queue 1 item 4)')
-
-
 def _params_vec(params, device):
     """(31,) float32 parameter tensor of RasterParams (host values), a
     packed vector or a (pose_vec, aug9) pair."""
@@ -59,16 +55,25 @@ def _features(points):
             points[:, cfg.PT_SEM])
 
 
+def _check_pack(pack, sparse_cap, pixel_size):
+    if pack not in (None, 'sparse'):
+        raise ValueError(f"pack must be None or 'sparse', got {pack!r}")
+    return (bev_core.default_sparse_cap(pixel_size) if sparse_cap is None
+            else sparse_cap)
+
+
 def make_sharded_raster_fn(mesh, view_size, pixel_size, sem_idxs,
                            int_scaler, int_sep_scaler, int_mid_threshold,
                            rgb_fill=0, points_axis: str = 'points',
-                           pack=None):
+                           pack=None, sparse_cap=None):
     """The psum engine. fn(points (M_l,10), valid (M_l,), pt_frame_ids
     (M_l,), inst_dyn (K,), params, gen_future) -> (S*7, P, P) float16 on
     every rank of ``points_axis``, each rank passing its shard; ``params``
     is RasterParams, the packed (31,) tensor or a (pose_vec, aug9)
-    pair."""
-    _no_sparse(pack)
+    pair. ``pack='sparse'``: every rank packs the same combined maps into
+    the one-device raster's (sparse, fallback) pair (bev/core
+    .sparse_outputs), before the warp."""
+    sparse_cap = _check_pack(pack, sparse_cap, pixel_size)
     P = pixel_size
     sem_idxs = dict(sem_idxs)
 
@@ -90,9 +95,11 @@ def make_sharded_raster_fn(mesh, view_size, pixel_size, sem_idxs,
                    for k, v in acc.items()}
             for key, v in ras.finalize_split(acc, P, rgb_fill).items():
                 chs[f'{key}_{name}'] = v
+            chs[f'count_{name}'] = acc['c_road'] + acc['c_not_road']
         return bev_core.emit_outputs(chs, list(splits), params, P,
                                      int_scaler, int_sep_scaler,
-                                     int_mid_threshold)
+                                     int_mid_threshold, pack=pack,
+                                     sparse_cap=sparse_cap)
 
     return raster
 
@@ -103,7 +110,8 @@ class TileRouteOverflow(RuntimeError):
     ``dest_cap_factor``: points must not be silently dropped."""
 
 
-_SPLIT_KEYS = ('road', 'intensity', 'rgb', 'dynamic', 'elevation')
+_SPLIT_KEYS = ('road', 'intensity', 'rgb', 'dynamic', 'elevation',
+               'count')
 
 
 class TileShardedRaster:
@@ -124,7 +132,10 @@ class TileShardedRaster:
     quantized to 0.25 and never above the starting factor; later calls
     route with it.
     Every rank reads the same reduced counts, so every rank calibrates,
-    and raises, on the same call.
+    and raises, on the same call. ``group`` runs a fetch group of
+    rasters and reads its counts as one: dropped rows summed, the peak
+    and the capacity at their maximum (the keyed rows at their minimum,
+    so the spread floor stays on the safe side).
 
     ``mark``: None, or a callable taking a phase name, for timing: called
     with 'start' as a call begins, then as each of its phases has been
@@ -135,8 +146,9 @@ class TileShardedRaster:
                  int_sep_scaler, int_mid_threshold, rgb_fill=0,
                  points_axis: str = 'points', pack=None,
                  dest_cap_factor: float = 4.0,
-                 calibrate_dest_cap: float = 2.0):
-        _no_sparse(pack)
+                 calibrate_dest_cap: float = 2.0, sparse_cap=None):
+        self.sparse_cap = _check_pack(pack, sparse_cap, pixel_size)
+        self.pack = pack
         self.mesh, self.axis = mesh, points_axis
         self.n = pmesh.axis_size(mesh, points_axis)
         self.P = pixel_size
@@ -162,6 +174,40 @@ class TileShardedRaster:
 
     def __call__(self, points, valid, pt_frame_ids, inst_dyn, params,
                  gen_future):
+        out, stats = self._raster(points, valid, pt_frame_ids, inst_dyn,
+                                  params, gen_future)
+        self._push(stats)
+        return out
+
+    def group(self, points, valid, pt_frame_ids, inst_dyn, pose_vec, aug9s,
+              gen_future):
+        """A fetch group: (pose_vec (22,), aug9s (G, 9)) -> the G outputs
+        stacked on a leading axis ((G, S*7, P, P) float16, or with the
+        sparse pack the pair (G, sparse bytes), (G, fallback bytes) of
+        uint8, each raster writing its row)."""
+        G = aug9s.shape[0]
+        bufs = None
+        if self.pack == 'sparse':
+            bufs = bev_core.empty_sparse_group(G, self.P, gen_future,
+                                               self.sparse_cap, False,
+                                               points.device)
+        outs, stats = [], []
+        for i in range(G):
+            out, st = self._raster(
+                points, valid, pt_frame_ids, inst_dyn, (pose_vec, aug9s[i]),
+                gen_future, out=None if bufs is None
+                else (bufs[0][i], bufs[1][i]))
+            outs.append(out)
+            stats.append(st)
+        st = torch.stack(stats)
+        self._push(torch.stack([st[:, 0].sum(), st[:, 1].max(),
+                                st[:, 2].max(), st[:, 3].min()]))
+        return bufs if bufs is not None else torch.stack(outs)
+
+    def _raster(self, points, valid, pt_frame_ids, inst_dyn, params,
+                gen_future, out=None):
+        """One raster: (its output, the (4,) int64 route counts [dropped,
+        busiest stripe, capacity, keyed] reduced over the axis)."""
         self._mark('start')
         n, P, axis = self.n, self.P, self.axis
         n_cells = P * P
@@ -220,34 +266,44 @@ class TileShardedRaster:
 
         # --- gather the stripes: global[l*n + d] = stripe d's [l] -------
         meta = ['present', 'future', 'full'] if gen_future else ['present']
+        keys = _SPLIT_KEYS if self.pack == 'sparse' else _SPLIT_KEYS[:-1]
         mine = torch.cat([flat[f'{k}_{s}'].reshape(-1, n_loc)
-                          for s in meta for k in _SPLIT_KEYS])
+                          for s in meta for k in keys])
         g = pmesh.all_gather(mine, self.mesh, axis)        # (n, C, n_loc)
         maps = g.permute(1, 2, 0).reshape(-1, P, P)
         self._mark('gather')
         chs = {}
+        per = 8 if self.pack == 'sparse' else 7     # + the counts
         for si, s in enumerate(meta):
-            m = maps[si * 7:(si + 1) * 7]
+            m = maps[si * per:(si + 1) * per]
             chs.update({f'road_{s}': m[0], f'intensity_{s}': m[1],
                         f'rgb_{s}': m[2:5], f'dynamic_{s}': m[5],
                         f'elevation_{s}': m[6]})
-        out = bev_core.emit_outputs(chs, meta, params, P, *self.scalers)
+            if self.pack == 'sparse':
+                chs[f'count_{s}'] = m[7]
+        out = bev_core.emit_outputs(chs, meta, params, P, *self.scalers,
+                                    pack=self.pack,
+                                    sparse_cap=self.sparse_cap, out=out)
         # One psum carries the dropped and the keyed rows.
         summed = pmesh.psum(torch.stack([(per_dest - cap).clamp(min=0).sum(),
                                          per_dest.sum()]), self.mesh, axis)
         stats = torch.stack([summed[0],
                              pmesh.pmax(per_dest.max(), self.mesh, axis),
                              torch.full_like(per_dest[0], cap), summed[1]])
+        self._mark('finalize')
+        return out, stats
+
+    def _push(self, stats):
+        """Queue one reading of the route counts (copied to the host
+        without a wait) and check the readings more than three back."""
         host = stats.to('cpu', non_blocking=True)
         done = None
         if stats.is_cuda:
             done = torch.cuda.Event()
             done.record()
-        self._mark('finalize')
-        self._pending.append((host, done, factor))
+        self._pending.append((host, done, self.dest_cap_factor))
         while len(self._pending) > 3:
             self._check(*self._pending.popleft())
-        return out
 
     def _check(self, host, done, factor):
         if done is not None:
@@ -290,20 +346,23 @@ def make_tile_sharded_raster_fn(mesh, view_size, pixel_size, sem_idxs,
                                 int_mid_threshold, rgb_fill=0,
                                 points_axis: str = 'points', pack=None,
                                 dest_cap_factor: float = 4.0,
-                                calibrate_dest_cap: float = 2.0):
+                                calibrate_dest_cap: float = 2.0,
+                                sparse_cap=None):
     """The tile engine (TileShardedRaster). P*P must divide by the
     points-axis size."""
     return TileShardedRaster(mesh, view_size, pixel_size, sem_idxs,
                              int_scaler, int_sep_scaler, int_mid_threshold,
                              rgb_fill, points_axis, pack, dest_cap_factor,
-                             calibrate_dest_cap)
+                             calibrate_dest_cap, sparse_cap)
 
 
 def make_mesh_raster_fn(mesh, view_size, pixel_size, sem_idxs, int_scaler,
                         int_sep_scaler, int_mid_threshold, rgb_fill=0,
-                        mesh_impl: str = 'auto', points_axis='points'):
+                        mesh_impl: str = 'auto', points_axis='points',
+                        pack=None, sparse_cap=None):
     """The engine ``mesh_impl`` names: 'tile', 'psum', or 'auto' (tile
-    where pixel_size^2 divides by the points-axis size, else psum)."""
+    where pixel_size^2 divides by the points-axis size, else psum), with
+    the output ``pack`` (None or 'sparse')."""
     if mesh_impl not in ('auto', 'tile', 'psum'):
         raise ValueError(f'mesh_impl must be auto|tile|psum, got '
                          f'{mesh_impl!r}')
@@ -314,7 +373,7 @@ def make_mesh_raster_fn(mesh, view_size, pixel_size, sem_idxs, int_scaler,
             else make_sharded_raster_fn)
     return make(mesh, view_size, pixel_size, sem_idxs, int_scaler,
                 int_sep_scaler, int_mid_threshold, rgb_fill,
-                points_axis=points_axis)
+                points_axis=points_axis, pack=pack, sparse_cap=sparse_cap)
 
 
 def shard_points_to_mesh(mesh, points, valid, pt_frame_ids,
@@ -379,7 +438,7 @@ def make_multistream_raster_fn(mesh, view_size, pixel_size, sem_idxs,
 
 # --- one controller, the other ranks of the points axis serving ---------
 
-_OPEN, _POINTS, _RASTER, _CLOSE, _SHUTDOWN = range(5)
+_OPEN, _POINTS, _RASTER, _CLOSE, _SHUTDOWN, _GROUP = range(6)
 
 
 def is_controller(mesh, points_axis: str = 'points') -> bool:
@@ -398,8 +457,10 @@ class MeshRasterClient:
     """The controller's side of the mesh raster. ``config`` holds
     make_mesh_raster_fn's keywords; the workers build the same engine
     from it. Per batch of samples: ``shard`` scatters the flat rows once,
-    then each call ``client(params, gen_future)`` rasters them; ``close``
-    drains the overflow checks and releases the workers' engine."""
+    then each call ``client(params, gen_future)`` rasters them, or
+    ``client.group(pose_vec, aug9s, gen_future)`` a fetch group of them
+    (tile engine: ``has_group``); ``close`` drains the overflow checks and
+    releases the workers' engine."""
 
     def __init__(self, mesh, config: dict, points_axis: str = 'points'):
         if not is_controller(mesh, points_axis):
@@ -434,6 +495,22 @@ class MeshRasterClient:
         _send(self.mesh, self.axis, _RASTER, int(bool(gen_future)))
         pmesh.broadcast(vec.clone(), self.mesh, self.axis)
         return self.raster(*self._shard, self._inst_dyn, vec, gen_future)
+
+    @property
+    def has_group(self) -> bool:
+        return hasattr(self.raster, 'group')
+
+    def group(self, pose_vec, aug9s, gen_future):
+        """The engine's ``group`` on the scattered rows: one request to
+        the workers for the whole fetch group."""
+        vec = torch.cat([pose_vec.to(torch.float32).reshape(-1),
+                         aug9s.to(torch.float32).reshape(-1)]).to(
+            self._inst_dyn.device)
+        G = aug9s.shape[0]
+        _send(self.mesh, self.axis, _GROUP, 2 * G + int(bool(gen_future)))
+        pmesh.broadcast(vec.clone(), self.mesh, self.axis)
+        return self.raster.group(*self._shard, self._inst_dyn, vec[:22],
+                                 vec[22:].view(G, 9), gen_future)
 
     def close(self):
         try:
@@ -471,6 +548,16 @@ def serve_mesh_rasters(mesh, points_axis: str = 'points') -> None:
                 points_axis)
             try:
                 raster(*shard, inst_dyn, vec, bool(arg))
+            except TileRouteOverflow:
+                pass
+        elif op == _GROUP:
+            G = arg // 2
+            vec = pmesh.broadcast(
+                torch.empty(22 + 9 * G, dtype=torch.float32, device=device),
+                mesh, points_axis)
+            try:
+                raster.group(*shard, inst_dyn, vec[:22], vec[22:].view(G, 9),
+                             bool(arg % 2))
             except TileRouteOverflow:
                 pass
         elif op == _CLOSE:

@@ -76,10 +76,19 @@ def test_split_stats_routes_match_jax(rng, gen_future, use_kernel,
 
 
 def test_compact_groups_not_ported():
+    """compact_groups needs the kernel route with hist_medians: elsewhere
+    it raises (the JAX package drops it silently there); on that route it
+    gives rank-indexed maps and cell_of_rank (tests/
+    test_torch_compact_step.py holds them to the dense groups). The name
+    is kept from when the port refused compact_groups."""
     c2 = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match='compact_groups'):
-        tsr.split_stats_from_words_flat(c2, c2, c2, 16, True,
-                                        compact_groups=True)
+    for kw in (dict(hist_medians=False), dict(use_kernel=False)):
+        with pytest.raises(ValueError, match='compact_groups'):
+            tsr.split_stats_from_words_flat(c2, c2, c2, 16, True,
+                                            compact_groups=True, **kw)
+    out = tsr.split_stats_from_words_flat(c2, c2, c2, 16, True,
+                                          compact_groups=True)
+    assert out['cell_of_rank'].tolist() == [0] + [16] * 15
 
 
 def _point_features(rng, n, P):
@@ -216,6 +225,21 @@ def test_make_raster_fn_matches_jax(rng, gen_future, backend, use_kernel):
 
 
 def test_make_raster_fn_rejects_sparse_pack():
-    with pytest.raises(NotImplementedError, match='sparse'):
-        tcore.make_raster_fn(40.0, 64, cfg.DEFAULT_SEM_IDXS, 20., 20., 0.5,
-                             pack='sparse')
+    """pack='sparse' is the sort backend's (as in the JAX package): the
+    scatter backend and unknown packs raise; the sort backend returns the
+    (sparse, fallback) uint8 pair (tests/test_torch_fetch.py holds its
+    bytes to the JAX package's). The name is kept from when the port
+    refused the sparse pack."""
+    args = (40.0, 64, cfg.DEFAULT_SEM_IDXS, 20., 20., 0.5)
+    with pytest.raises(ValueError, match='sparse'):
+        tcore.make_raster_fn(*args, backend='scatter', pack='sparse')
+    with pytest.raises(ValueError, match='pack'):
+        tcore.make_raster_fn(*args, pack='dense')
+    pts = torch.zeros((8, 10))
+    sp, fb = tcore.make_raster_fn(*args, pack='sparse', sparse_cap=256)(
+        pts, torch.ones(8, dtype=torch.bool), torch.zeros(8, dtype=torch.int32),
+        torch.zeros(1), torch.from_numpy(tcore.identity_params(
+            window=(0, 1), present_frame=1).pack()), True)
+    assert sp.dtype == fb.dtype == torch.uint8
+    assert (sp.numel(), fb.numel()) == tcore.sparse_buffer_bytes(64, True,
+                                                                 256)

@@ -12,6 +12,14 @@ tests/test_sharding.py holds its mesh rasters:
   * every rank's output equal to rank 0's; the tuple-form parameters
     give the packed form's stack exactly; the routing counters, the
     overflow message and the calibrated factor equal JAX's exactly.
+
+A second world of 2 ranks (tests/torch_mesh_worlds.sparse_mesh_cases)
+runs the sparse pack: the tile engine's (sparse, fallback) buffers are
+byte-equal to the one-device raster's, per raster and through ``group``
+(directly and through MeshRasterClient's request to the worker); the
+psum engine's carry the same header and decode within the psum
+tolerance; a sparse step() on the mesh (grouped, rungs, async) gives the
+one-device sparse step()'s maps exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -221,3 +229,55 @@ def test_initialize_multihost_unconfigured_is_noop():
     import torch.distributed as dist
     pmesh.initialize_multihost(None)
     assert not dist.is_initialized()
+
+
+@pytest.fixture(scope='module')
+def sparse_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp('mesh_sparse')
+    w.spawn_world('sparse_mesh_cases', 2, tmp)
+    return [w.load(tmp, f'sparse_r{r}') for r in range(2)]
+
+
+def _decoded(buf, gen_future):
+    from pc_accumulation_lib_tpu_torch.bev import core as tcore
+    return tcore.decode_sparse_stack(
+        buf, gen_future, w.P, w.SPARSE_KW['sparse_cap'],
+        tcore.sparse_empty_values(20., 20., 0.5))
+
+
+@pytest.mark.parametrize('gen_future', [True, False])
+def test_sparse_pack_on_mesh_byte_equal(sparse_runs, gen_future):
+    one = sparse_runs[0][f'one_{gen_future}']
+    for r in range(2):
+        for got, want in zip(sparse_runs[r][f'tile_{gen_future}'], one):
+            np.testing.assert_array_equal(got, want)
+        sp = sparse_runs[r][f'psum_{gen_future}'][0]
+        hdr = core.sparse_header_bytes(w.P, gen_future)
+        np.testing.assert_array_equal(sp[:hdr], one[0][:hdr])
+        _maps_close(_decoded(sp, gen_future), _decoded(one[0], gen_future),
+                    gen_future)
+
+
+def test_tile_group_byte_equal(sparse_runs):
+    """group and MeshRasterClient.group: row i is the one-device raster
+    of draw i, both buffers, byte for byte."""
+    one = sparse_runs[0]['one_group']
+    for got in (sparse_runs[0]['group'], sparse_runs[1]['group'],
+                sparse_runs[0]['client_group']):
+        assert got[0].shape[0] == got[1].shape[0] == len(one)
+        for i, (sp, dn) in enumerate(one):
+            np.testing.assert_array_equal(got[0][i], sp)
+            np.testing.assert_array_equal(got[1][i], dn)
+
+
+def test_sparse_step_on_mesh_matches_one_device(sparse_runs):
+    out = sparse_runs[0]
+    assert len(out['step']) == len(out['step_one']) == w.SPARSE_STEPS
+    assert sum(out['step_rungs'].values()) == w.SPARSE_STEPS
+    for mesh_bevs, one_bevs in zip(out['step'], out['step_one']):
+        assert len(mesh_bevs) == 4
+        for a, b in zip(mesh_bevs, one_bevs):
+            assert set(a) == set(b)
+            for k in a:
+                if not k.startswith('trajs'):
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -11,6 +11,7 @@ from the functions below, which the test files call too.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -178,6 +179,95 @@ def mesh_cases(rank, n, tmp):
             torch.from_numpy(raster_params(d).pack())[None],
             True).float().numpy())
     save(tmp, f'mesh_r{rank}', out)
+
+
+# --- tests/test_torch_mesh.py: the sparse fetch on 2 ranks --------------
+
+SPARSE_KW = dict(pack='sparse', sparse_cap=(1024, 1024, 768))
+GROUP_AUG = np.array(
+    [[0.3, 0.5, -0.2, 1.03, 1.0, 0.0, 1.0, 0.0, np.inf],
+     [1.9, -0.4, 0.8, 0.97, 1.1, -3e-3, 0.9, 3e-3, 2.0],
+     [4.0, 0.0, 0.0, 1.0, 1.0, 0.0, 1.0, 0.0, np.inf]], np.float32)
+SPARSE_STEPS = 3
+
+
+def _sparse_step_accum(mesh):
+    from pc_accumulation_lib_tpu_torch import config as cfg
+    from pc_accumulation_lib_tpu_torch.accum.kitti360 import (
+        Kitti360SemanticPointCloudAccumulator)
+    bev = dict(STEP_BEV, fetch_dtype='sparse', fetch_group=2,
+               sparse_cap=SPARSE_KW['sparse_cap'])
+    if mesh is not None:
+        bev['mesh'] = mesh
+    kw = accum_kwargs(cfg)
+    kw['accum_cfg'] = dataclasses.replace(kw['accum_cfg'],
+                                          compact_rungs=(8192, 16384, 32768))
+    return Kitti360SemanticPointCloudAccumulator(
+        200., _calib(), 1e3, None, cfg.DEFAULT_SEMSEG_FILTERS,
+        cfg.DEFAULT_SEM_IDXS, True, bev, device='cpu', **kw)
+
+
+def _sparse_steps(a, frames):
+    a.integrate([frames[0]])
+    out = [a.step([f], bev_num=4, gen_future=True, async_fetch=True)()
+           for f in frames[1:SPARSE_STEPS + 1]]
+    a.sem_bev_generator.close()
+    return out
+
+
+def sparse_mesh_cases(rank, n, tmp):
+    """The engines' sparse pack, the tile engine's group, and through the
+    controller MeshRasterClient.group and a sparse step() on (1, n); rank
+    0 also runs the one-device forms."""
+    from pc_accumulation_lib_tpu_torch.bev import core
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.parallel import sharded
+    mesh = pmesh.make_mesh((1, n), device_type='cpu')
+    full = [torch.from_numpy(a) for a in make_points(0)]
+    shard = sharded.shard_points_to_mesh(
+        mesh, *(full if rank == 0 else (None,) * 3))
+    inst, params = torch.zeros(4), raster_params()
+    packed = torch.from_numpy(params.pack())
+    pose, aug = packed[:22], torch.from_numpy(GROUP_AUG)
+    args = (mesh, 40.0, P, SEM_IDXS, 20., 20., 0.5)
+    tile = sharded.make_tile_sharded_raster_fn(*args, **SPARSE_KW)
+    psum = sharded.make_sharded_raster_fn(*args, **SPARSE_KW)
+    out = {}
+    for gf in (True, False):
+        for name, eng in (('tile', tile), ('psum', psum)):
+            out[f'{name}_{gf}'] = [t.numpy() for t in eng(*shard, inst,
+                                                          params, gf)]
+    out['group'] = [t.numpy() for t in tile.group(*shard, inst, pose, aug,
+                                                  True)]
+    tile.drain()
+    if rank == 0:
+        one = core.make_raster_fn(40.0, P, SEM_IDXS, 20., 20., 0.5,
+                                  **SPARSE_KW)
+        for gf in (True, False):
+            out[f'one_{gf}'] = [t.numpy() for t in one(*full, inst, packed,
+                                                       gf)]
+        out['one_group'] = [[t.numpy() for t in one(
+            *full, inst, (pose, aug[i]), True)] for i in range(len(aug))]
+    if sharded.is_controller(mesh):
+        try:
+            client = sharded.MeshRasterClient(mesh, dict(
+                view_size=40.0, pixel_size=P, sem_idxs=SEM_IDXS,
+                int_scaler=20., int_sep_scaler=20., int_mid_threshold=0.5,
+                mesh_impl='tile', **SPARSE_KW))
+            client.shard(*full, inst)
+            out['client_group'] = [t.numpy() for t in client.group(
+                pose, aug, True)]
+            client.close()
+            a = _sparse_step_accum(mesh)
+            out['step'] = _sparse_steps(a, step_frames())
+            out['step_rungs'] = a.rungs_used
+        finally:
+            sharded.shutdown_mesh_workers(mesh)
+        out['step_one'] = _sparse_steps(_sparse_step_accum(None),
+                                        step_frames())
+    else:
+        sharded.serve_mesh_rasters(mesh)
+    save(tmp, f'sparse_r{rank}', out)
 
 
 # step() on a mesh rasters compact_window's buffer, whose live rows sit
