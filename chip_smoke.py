@@ -34,7 +34,11 @@ thread, samples held to the dense raster, the overflow fallback),
 kernels_on_sparse_path (both kernels on its rank-compacted keys),
 sparse_oracle_path (the oracle on the sparse fetch) and mesh_sparse (the
 sparse step() through the tile engine's group on two ranks, byte-equal
-to sparse_step_path's buffers).
+to sparse_step_path's buffers). Tensor parallelism: train_tp_path (the
+training runner at its default (1, 2) layout on the two ranks, full
+depth and width, a float64 run held to one card's, float32 timed, the
+model-axis collectives' bytes), train_tp4_path ((2, 2) on four ranks,
+float64, held) and dryrun_multichip on 2 and 4 ranks.
 
     python3 chip_smoke.py
 
@@ -2611,6 +2615,17 @@ PIPE_ATOL = 1e-5
 # PERF.md).
 TRAIN_MESH_STEPS = 6
 TRAIN_MESH_STEPS_FLOAT64 = 3
+# DP+TP training (train_tp_path): train_semseg.run at the runner's
+# default layout, (1, 2) on the 2 ranks, at full depth and width on
+# train_path's shard, a global batch of 2 (cut from run()'s 8: gloo stages
+# every model-axis collective through host memory, ~0.8 GB of channel
+# gathers per float32 image in the forward pass and about as much in
+# psums in the backward pass); 3 float64 steps held to a one-card float64
+# run of the same by _train_held, 6 float32 steps timed. The same float64
+# hold on (2, 2) in mesh_step4's 4-rank world. A (1, 2) rank holds
+# TP_PARAMS_PER_RANK of the 32,975,219 parameters.
+TRAIN_TP_BATCH = 2
+TP_PARAMS_PER_RANK = 16_991_603
 
 
 def _sync(dev):
@@ -2630,7 +2645,12 @@ def _mesh_plan(dev):
                 sampling=None, semseg={},
                 train_steps={str(torch.float64): TRAIN_MESH_STEPS_FLOAT64,
                              str(torch.float32): TRAIN_MESH_STEPS},
-                train_batch=TRAIN_BATCH, train_stage_sizes=None)
+                train_batch=TRAIN_BATCH, train_tp_batch=TRAIN_TP_BATCH,
+                train_tp_dtypes={
+                    str(MESH_RANKS): [str(torch.float64),
+                                      str(torch.float32)],
+                    str(MESH4_RANKS): [str(torch.float64)]},
+                train_stage_sizes=None)
 
 
 def _save(tmp, name, obj):
@@ -3017,14 +3037,61 @@ def _mesh_sparse(rank, n, tmp, plan, dev):
     return out
 
 
-def _training_probe(make_setup, rec, dev, dtype):
+class _AxisBytes:
+    """While entered: the bytes of the results of parallel/mesh.py's
+    psum, all_gather and broadcast over one mesh axis on this rank (a
+    psum's or a broadcast's tensor, an all_gather's n slices), by
+    collective, and their calls."""
+
+    NAMES = ('psum', 'all_gather', 'broadcast')
+
+    def __init__(self, axis):
+        from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+        self.pmesh, self.axis = pmesh, axis
+        self.bytes = dict.fromkeys(self.NAMES, 0)
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.saved[name] = getattr(self.pmesh, name)
+            setattr(self.pmesh, name, self._counted(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.pmesh, name, fn)
+
+    def _counted(self, name, fn):
+        def counted(x, mesh, axis, *args, **kwargs):
+            out = fn(x, mesh, axis, *args, **kwargs)
+            if axis == self.axis:
+                self.bytes[name] += out.numel() * out.element_size()
+                self.calls[name] += 1
+            return out
+        return counted
+
+    def snapshot(self):
+        return dict(self.bytes), dict(self.calls)
+
+
+def _training_probe(make_setup, rec, dev, dtype, axis_bytes=None):
     """A make_train_setup whose model, convolutions and optimizer are in
     ``dtype`` and whose steps record their time and, after step 1, the
-    gradients and the batch-norm running statistics on the host."""
+    gradients and the batch-norm running statistics on the host (full
+    tensors: a model cut over 'model' gathers them), the parameters on
+    this rank and their bytes with their gradients and Adam moments; with
+    ``axis_bytes`` (an entered _AxisBytes) also each step's collective
+    bytes and calls on its axis."""
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
     from pc_accumulation_lib_tpu_torch.models.resnet_semseg import _Conv
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
     def setup(*args, **kwargs):
         kwargs['compute_dtype'] = dtype
+        mesh = kwargs.get('mesh')
+        rec['layout'] = None if mesh is None else (
+            pmesh.axis_size(mesh, 'data'), pmesh.axis_size(mesh, 'model'))
         state, train_step = make_setup(*args, **kwargs)
         state.model.to(dtype)
         for m in state.model.modules():
@@ -3034,25 +3101,48 @@ def _training_probe(make_setup, rec, dev, dtype):
             state.model.parameters(), **state.optimizer.defaults))
 
         def step(state, images, labels):
+            before = axis_bytes and axis_bytes.snapshot()
             ts = time.perf_counter()
             state, loss = train_step(state, images, labels)
             _sync(dev)
             rec.setdefault('step_s', []).append(time.perf_counter() - ts)
+            if axis_bytes:
+                after = axis_bytes.snapshot()
+                rec.setdefault('axis_bytes', []).append(
+                    {k: after[0][k] - before[0][k] for k in after[0]})
+                rec.setdefault('axis_calls', []).append(
+                    {k: after[1][k] - before[1][k] for k in after[1]})
             if 'grads' not in rec:
-                rec['grads'] = {k: p.grad.detach().cpu().numpy().copy()
-                                for k, p in state.model.named_parameters()}
-                rec['stats'] = {k: v.detach().cpu().numpy().copy()
-                                for k, v in state.model.state_dict().items()
-                                if 'running' in k}
+                model = state.model
+                params = list(model.parameters())
+                adam = [t for p in params
+                        for t in state.optimizer.state[p].values()
+                        if t.dim()]
+                rec['params'] = sum(p.numel() for p in params)
+                rec['param_grad_adam_bytes'] = sum(
+                    t.numel() * t.element_size()
+                    for t in params + [p.grad for p in params] + adam)
+                rec['grads'] = _host(train_mod.gather_named(model, {
+                    k: p.grad for k, p in model.named_parameters()}))
+                rec['stats'] = _host(train_mod.gather_named(model, {
+                    k: v for k, v in model.state_dict().items()
+                    if 'running' in k}))
             return state, loss
         return state, step
     return setup
 
 
-def train_run(shard_glob, plan, dev, ckpt_dir, dtype):
+def _host(named):
+    return {k: v.detach().cpu().numpy().copy() for k, v in named.items()}
+
+
+def train_run(shard_glob, plan, dev, ckpt_dir, dtype, dp=None,
+              batch=None, axis_bytes=None):
     """train_semseg.run over this process's world (one card without a
     process group) in ``dtype`` with TF32 off, for the plan's float64 or
-    float32 step count; returns the probe's record with the losses."""
+    float32 step count, at ``dp`` (None: the runner's default layout) and
+    the global ``batch`` (the plan's by default); returns the probe's
+    record with the losses."""
     from pc_accumulation_lib_tpu_torch.models import train as train_mod
     from pc_accumulation_lib_tpu_torch.runners import train_semseg
     rec = {}
@@ -3060,12 +3150,12 @@ def train_run(shard_glob, plan, dev, ckpt_dir, dtype):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     train_mod.make_train_setup = _training_probe(make_setup, rec, dev,
-                                                 dtype)
+                                                 dtype, axis_bytes)
     try:
         _, losses = train_semseg.run(
             shard_glob, steps=plan['train_steps'][str(dtype)],
-            batch_size=plan['train_batch'], ckpt_dir=ckpt_dir,
-            ckpt_every=0, stage_sizes=plan['train_stage_sizes'],
+            batch_size=batch or plan['train_batch'], ckpt_dir=ckpt_dir,
+            ckpt_every=0, dp=dp, stage_sizes=plan['train_stage_sizes'],
             log_every=TRAIN_MESH_STEPS, device=dev)
     finally:
         train_mod.make_train_setup = make_setup
@@ -3073,6 +3163,19 @@ def train_run(shard_glob, plan, dev, ckpt_dir, dtype):
     rec['losses'] = losses
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
+    return rec
+
+
+def _peak_train_run(shard_glob, plan, dev, ckpt_dir, dtype, **kwargs):
+    """train_run with the card's peak memory over the run in its record
+    (None on the CPU)."""
+    _sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rec = train_run(shard_glob, plan, dev, ckpt_dir, dtype, **kwargs)
+    rec['max_memory_allocated_bytes'] = (
+        torch.cuda.max_memory_allocated() if dev.type == 'cuda' else None)
     return rec
 
 
@@ -3087,7 +3190,7 @@ def _mesh_train(rank, n, tmp, plan, dev):
         torch.cuda.reset_peak_memory_stats()
     recs = {str(dt): train_run(os.path.join(tmp, 'train', 'shard*.npz'),
                                plan, dev, os.path.join(tmp, 'ckpt_mesh'),
-                               dt)
+                               dt, dp=n)
             for dt in (torch.float64, torch.float32)}
     if rank == 0:
         _save(tmp, 'mesh_train', recs)
@@ -3097,6 +3200,36 @@ def _mesh_train(rank, n, tmp, plan, dev):
         out['max_memory_allocated_bytes'] = torch.cuda.max_memory_allocated()
     out['seconds'] = time.perf_counter() - t0
     return out
+
+
+def _mesh_train_tp(rank, n, tmp, plan, dev):
+    """train_semseg.run at the runner's default layout over the world
+    ((1, 2) on 2 ranks, (2, 2) on 4), global batch TRAIN_TP_BATCH, in the
+    plan's dtypes for this world (float64 held, float32 timed); each
+    step's model-axis collective bytes counted. Rank 0 saves the records
+    as mesh_train_tp{n}; every rank returns its layout, its parameters,
+    their bytes with gradients and Adam moments, its peak per dtype and
+    times."""
+    t0 = time.perf_counter()
+    recs = {}
+    with _AxisBytes('model') as axis_bytes:
+        for name in plan['train_tp_dtypes'][str(n)]:
+            recs[name] = _peak_train_run(
+                os.path.join(tmp, 'train', 'shard*.npz'), plan, dev,
+                os.path.join(tmp, f'ckpt_tp{n}'),
+                getattr(torch, name.split('.')[-1]),
+                batch=plan['train_tp_batch'], axis_bytes=axis_bytes)
+    if rank == 0:
+        _save(tmp, f'mesh_train_tp{n}', recs)
+    return {name: dict(layout=rec['layout'], params=rec['params'],
+                       param_grad_adam_bytes=rec['param_grad_adam_bytes'],
+                       step_s=rec['step_s'], losses=rec['losses'],
+                       axis_bytes=rec['axis_bytes'],
+                       axis_calls=rec['axis_calls'],
+                       max_memory_allocated_bytes=rec[
+                           'max_memory_allocated_bytes'])
+            for name, rec in recs.items()} | {
+                'seconds': time.perf_counter() - t0}
 
 
 def _dense_stage(params, x):
@@ -3196,8 +3329,13 @@ def _mesh_nccl_raster(rank, n, tmp, plan, dev):
 
 def _mesh_nccl_train(rank, n, tmp, plan, dev):
     """One data-parallel train step of SMALL_TRAIN's model on a (1, 1)
-    NCCL mesh against the one-device step from the same seed and batch."""
+    NCCL mesh against the one-device step from the same seed and batch;
+    the mesh step's collectives over 'data' are counted, and must hold
+    each batch norm's statistics and the gradients."""
+    import torch.distributed as dist
+
     from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    from pc_accumulation_lib_tpu_torch.models.resnet_semseg import _BN
     from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
     c = SMALL_TRAIN
     rng = np.random.default_rng(0)
@@ -3206,16 +3344,29 @@ def _mesh_nccl_train(rank, n, tmp, plan, dev):
     labels = torch.as_tensor(rng.integers(0, 19, (c['batch'], *c['hw'])),
                              device=dev)
     losses = []
-    for mesh in (pmesh.make_mesh((n, 1), ('data', 'model'), dev.type),
-                 None):
+    mesh = pmesh.make_mesh((n, 1), ('data', 'model'), dev.type)
+    backend = dist.get_backend(mesh.get_group('data'))
+    check(backend == ('nccl' if dev.type == 'cuda' else 'gloo'), backend)
+    for m in (mesh, None):
         state, step = train_mod.make_train_setup(
             lr=c['lr'], seed=0, stage_sizes=c['stage_sizes'],
-            compute_dtype=torch.float32, device=dev, mesh=mesh)
-        losses.append(float(step(state, images, labels)[1]))
+            compute_dtype=torch.float32, device=dev, mesh=m)
+        with _AxisBytes('data') as axis_bytes:
+            losses.append(float(step(state, images, labels)[1]))
+        if m is mesh:
+            psum_bytes, calls = (d['psum'] for d in axis_bytes.snapshot())
+            n_bn = sum(isinstance(x, _BN) for x in state.model.modules())
+            grad_bytes = sum(p.numel() * p.element_size()
+                             for p in state.model.parameters())
+    # Per batch norm two psums forward and two backward; the valid
+    # count's; the gradients' and the loss's in one.
+    check(calls == 4 * n_bn + 2 and psum_bytes > grad_bytes,
+          (calls, n_bn, psum_bytes, grad_bytes))
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     check(rel <= 1e-5, losses)
     return dict(loss_mesh=losses[0], loss_one_device=losses[1],
-                rel_err=rel)
+                rel_err=rel, backend=backend, data_psums=calls,
+                data_psum_bytes=psum_bytes)
 
 
 def _exact_and_close(a, b):
@@ -3284,10 +3435,15 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
     bench configuration for 9 steps, held to main_path's samples by the
     step() rule; train_semseg.run data-parallel at full width against a
     one-card run, in float64 (held) and float32 (timed; TRAIN_MESH_STEPS'
+    comment); train_semseg.run at its default (1, 2) DP+TP layout against
+    one-card runs of the same batch (train_tp_path, TRAIN_TP_BATCH's
     comment); GPipe on a pp = 2 mesh against the sequential stack; the
     sparse step() through the tile engine's group (mesh_sparse), its
     samples' used bytes equal to sparse_step_path's first steps'
-    (``sparse_rows``) byte for byte."""
+    (``sparse_rows``) byte for byte. Returns the runner's, step()'s and
+    the sparse step()'s kernel-1 launches per rank and the one-card
+    TRAIN_TP_BATCH runs (float64, float32) that phase_mesh_step4 holds
+    the (2, 2) layout to."""
     plan = plan or _mesh_plan(dev)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3301,12 +3457,19 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
                                   plan, dev, os.path.join(tmp, 'ckpt_one'),
                                   dt)
                for dt in (torch.float64, torch.float32)}
+        one_tp = {str(dt): _peak_train_run(
+            os.path.join(tmp, 'train', 'shard*.npz'), plan, dev,
+            os.path.join(tmp, 'ckpt_one_tp'), dt,
+            batch=plan['train_tp_batch'])
+            for dt in (torch.float64, torch.float32)}
         ranks = _spawn_world(MESH_RANKS, 'gloo', tmp, plan,
-                             ('runner', 'step', 'train', 'gpipe', 'sparse'))
+                             ('runner', 'step', 'train', 'train_tp', 'gpipe',
+                              'sparse'))
         mesh_samples = _read_samples(os.path.join(tmp, 'mesh_runner'))
         step_bevs = _load(tmp, 'mesh_step_bevs')
         mesh_rows = _load(tmp, 'mesh_sparse_rows')
         dp = _load(tmp, 'mesh_train')
+        tp = _load(tmp, f'mesh_train_tp{MESH_RANKS}')
     runner = ranks[0]['runner']
     n = runner['bevs']
     check(n == len(runner_samples) and n > 0, (n, len(runner_samples)))
@@ -3371,6 +3534,7 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
         check(held64[name] <= 1.0, ('float64', name, held64[name]))
     for name in ('step1_loss', 'running_stats'):
         check(held32[name] <= 1.0, ('float32', name, held32[name]))
+    _emit_train_tp(t0, MESH_RANKS, plan, tp, one_tp, ranks)
     emit('gpipe', t0, stages=MESH_RANKS, atol=PIPE_ATOL,
          **{f'rank{r}': ranks[r]['gpipe'] for r in range(MESH_RANKS)})
     sparse = ranks[0]['sparse']
@@ -3394,24 +3558,78 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
          world_seconds=sparse['seconds'],
          **{k: sparse[k] for k in ('group_ms', 'median_group_ms',
                                    'rungs_used')})
-    return launches, step_launches, sparse_launches
+    return launches, step_launches, sparse_launches, one_tp
 
 
-def phase_mesh_step4(dev, main_bevs, plan=None):
+def _emit_train_tp(t0, n, plan, tp, one, ranks):
+    """train_tp_path (n ranks, (1, 2) for 2) or train_tp4_path ((2, 2)):
+    the runner's default layout on every rank, TP_PARAMS_PER_RANK
+    parameters on a (., 2) rank, the float64 run held to the one-card
+    float64 run by _train_held (and the float32 step-1 loss and running
+    statistics, where it ran); bytes, times and peaks per rank."""
+    got = [r['train_tp'] for r in ranks]
+    layout = (n // 2, 2)
+    out = {}
+    for name, rec in tp.items():
+        per_rank = [g[name] for g in got]
+        for g in per_rank:
+            check(tuple(g['layout']) == layout, (name, g['layout'], layout))
+            check(g['params'] == TP_PARAMS_PER_RANK, (name, g['params']))
+        held = _train_held(rec, one[name])
+        axis = per_rank[0]['axis_bytes']
+        out[name.split('.')[-1]] = dict(
+            held=held, losses=dict(tp=rec['losses'], one_card=one[name][
+                'losses']),
+            step_s=[g['step_s'] for g in per_rank],
+            one_card_step_s=one[name]['step_s'],
+            params_per_rank=[g['params'] for g in per_rank],
+            one_card_params=one[name]['params'],
+            param_grad_adam_bytes_per_rank=[
+                g['param_grad_adam_bytes'] for g in per_rank],
+            one_card_param_grad_adam_bytes=one[name]['param_grad_adam_bytes'],
+            peak_bytes_per_rank=[g['max_memory_allocated_bytes']
+                                 for g in per_rank],
+            one_card_peak_bytes=one[name]['max_memory_allocated_bytes'],
+            model_axis_bytes_per_step=axis,
+            model_axis_calls_per_step=per_rank[0]['axis_calls'])
+        for key in (('step1_loss', 'losses', 'gradients', 'running_stats')
+                    if name == str(torch.float64)
+                    else ('step1_loss', 'running_stats')):
+            check(held[key] <= 1.0, (name, key, held[key]))
+    emit('train_tp_path' if n == MESH_RANKS else 'train_tp4_path', t0,
+         ranks=n, layout=list(layout), hw=list(plan['stream']['img_hw']),
+         global_batch=plan['train_tp_batch'], steps=plan['train_steps'],
+         note='errors are ratios to their limit: <= 1 passes; held: every '
+         'float64 error, the float32 step-1 loss and running statistics; '
+         'TF32 off; the ranks share one card over gloo, every model-axis '
+         'collective staged through host memory; model_axis_bytes: the '
+         'results of each step\'s psums, all_gathers and broadcasts over '
+         "'model' on rank 0", **out)
+
+
+def phase_mesh_step4(dev, main_bevs, one_tp, plan=None):
     """main_path's step() drive on a (1, 4) mesh: 4 ranks on this card
     over gloo, rank 0 integrating, the tile engine's route calibrated on
     the first step's small window and then holding the grown ones (no
     TileRouteOverflow: the rows are dealt strided). Holds 144 kernel-1
     launches per rank and the samples to main_path's (road, dynamic, rgb
     and elevation exact, intensity within SELFTEST_ATOL); reports each
-    rank's live rows per step and the route numbers."""
+    rank's live rows per step and the route numbers. Then in the same
+    world train_tp4_path: train_semseg.run at the runner's default (2, 2)
+    layout, 3 float64 steps of TRAIN_TP_BATCH held to ``one_tp``'s
+    one-card float64 run."""
     plan = plan or _mesh_plan(dev)
     t0 = time.perf_counter()
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = _spawn_world(MESH4_RANKS, 'gloo', tmp, plan, ('step',))
+        os.makedirs(os.path.join(tmp, 'train'))
+        _train_shard(os.path.join(tmp, 'train', 'shard0.npz'),
+                     plan['stream']['img_hw'])
+        ranks = _spawn_world(MESH4_RANKS, 'gloo', tmp, plan,
+                             ('step', 'train_tp'))
         bevs = _load(tmp, 'mesh_step_bevs')
+        tp = _load(tmp, f'mesh_train_tp{MESH4_RANKS}')
     step = ranks[0]['step']
     launches = [r['step']['launches'] for r in ranks]
     expect = plan['bev_num'] * plan['steps']
@@ -3429,6 +3647,7 @@ def phase_mesh_step4(dev, main_bevs, plan=None):
              'scatter_ms_per_step', 'max_live_rows',
              'live_rows_per_rank_by_step', 'route_peak_rows', 'route_cap',
              'dest_cap_factor')})
+    _emit_train_tp(t0, MESH4_RANKS, plan, tp, one_tp, ranks)
     return launches
 
 
@@ -3449,13 +3668,17 @@ def phase_mesh_nccl(dev, plan=None):
     emit('mesh_nccl', t0, raster=r['nccl_raster'], train=r['nccl_train'])
 
 
-def phase_dryrun(dev):
+def phase_dryrun(dev, n):
+    """parallel/dryrun.py on n ranks of this card: step 1 trains DP+TP
+    with the JAX dryrun's tp (the largest power of two dividing n, at
+    most 4), which the summary reports."""
     from pc_accumulation_lib_tpu_torch.parallel.dryrun import (
         dryrun_multichip)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        summary = dryrun_multichip(MESH_RANKS, device=dev.type)
-    emit('dryrun_multichip', t0, ranks=MESH_RANKS, **summary)
+        summary = dryrun_multichip(n, device=dev.type)
+    check(summary['tp'] == min(4, n & -n), summary)
+    emit('dryrun_multichip', t0, ranks=n, **summary)
 
 
 def _kernel_entry(name, replaces, launches, max_abs_err, on_runner,
@@ -3525,12 +3748,13 @@ def main():
         phase_train_path(dev, tmp)
         phase_pc_accum(dev, tmp)
     phase_gpu_vs_cpu_train(dev)
-    mesh_runner, mesh_step, mesh_sparse = phase_mesh(dev, main_bevs, samples,
-                                                     sparse_rows)
+    mesh_runner, mesh_step, mesh_sparse, one_tp = phase_mesh(
+        dev, main_bevs, samples, sparse_rows)
     del sparse_rows
-    mesh_step4 = phase_mesh_step4(dev, main_bevs)
-    del main_bevs, samples
-    phase_dryrun(dev)
+    mesh_step4 = phase_mesh_step4(dev, main_bevs, one_tp)
+    del main_bevs, samples, one_tp
+    phase_dryrun(dev, MESH_RANKS)
+    phase_dryrun(dev, MESH4_RANKS)
     phase_mesh_nccl(dev)
     # Each kernel's timing at five shapes: made-up bench raster rows, a
     # step() raster's rows (dense cell keys, and rank-compacted keys on the

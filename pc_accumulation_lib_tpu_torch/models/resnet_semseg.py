@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pc_accumulation_lib_tpu_torch.parallel import tensor_parallel as tp
+
 NUM_CLASSES = 19
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -93,7 +95,9 @@ class _BN(nn.BatchNorm2d):
 
 
 class Bottleneck(nn.Module):
-    """ResNet v1 bottleneck with optional stride/dilation."""
+    """ResNet v1 bottleneck with optional stride/dilation. The forward's
+    ``ax`` is the model's ModelAxis when it is cut, else None
+    (parallel/tensor_parallel.py)."""
 
     def __init__(self, in_ch, features, stride, dilation, downsample, dt):
         super().__init__()
@@ -113,11 +117,20 @@ class Bottleneck(nn.Module):
                       compute_dtype=dt),
                 _BN(features * 4))
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, ax=None):
+        full = tp.full(x, self.conv1, ax)
+        into = tp.copy_in(full, ax)
+        y = F.relu(self.bn1(tp.apply(self.conv1, full, into)))
+        y = F.relu(self.bn2(tp.conv(self.conv2, y, ax)))
+        y = self.bn3(tp.conv(self.conv3, y, ax))
+        if self.downsample is None:
+            # The block input as it came, on a cut model the rank's own
+            # slice: slicing the gathered copy would give a gradient that
+            # differs between ranks.
+            residual = x
+        else:
+            conv, bn = self.downsample
+            residual = bn(tp.apply(conv, full, into))
         return F.relu(y + residual)
 
 
@@ -142,10 +155,11 @@ class _Backbone(nn.Module):
                 in_ch = feats * 4
             setattr(self, f'layer{si + 1}', nn.Sequential(*blocks))
 
-    def forward(self, x):
+    def forward(self, x, ax=None):
         x = F.max_pool2d(self.stem(x), 3, stride=2, padding=1)
         for si in range(4):
-            x = getattr(self, f'layer{si + 1}')(x)
+            for block in getattr(self, f'layer{si + 1}'):
+                x = block(x, ax)
         return x
 
 
@@ -156,8 +170,8 @@ class _ConvModule(nn.Module):
                           compute_dtype=dt)
         self.bn = _BN(out_ch)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, ax=None):
+        return F.relu(self.bn(tp.conv(self.conv, x, ax)))
 
 
 class _FCNHead(nn.Module):
@@ -167,12 +181,24 @@ class _FCNHead(nn.Module):
         self.conv_seg = _Conv(512, num_classes, 1,
                               compute_dtype=torch.float32)
 
-    def forward(self, x):
-        return self.conv_seg(self.convs(x))
+    def forward(self, x, ax=None):
+        for module in self.convs:
+            x = module(x, ax)
+        return tp.conv(self.conv_seg, x, ax)
 
 
 class ResNet50DilatedFCN(nn.Module):
-    """Dilated ResNet-50 v1c backbone + FCN head, output stride 8."""
+    """Dilated ResNet-50 v1c backbone + FCN head, output stride 8.
+
+    ``model_axis``: None, or the parallel/tensor_parallel.ModelAxis that
+    models/train.shard_variables sets when it cuts the wide layers over a
+    mesh axis; the forward is then tensor parallel
+    (parallel/tensor_parallel.py). ``mesh``: None, or the ('data',
+    'model') mesh that models/train.make_train_setup trains it on; the
+    rank at its coordinate 0 writes its files (models/checkpoint.py)."""
+
+    model_axis = None
+    mesh = None
 
     def __init__(self, num_classes: int = NUM_CLASSES,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
@@ -190,7 +216,8 @@ class ResNet50DilatedFCN(nn.Module):
         float32 logits at the input resolution."""
         x = (images.to(torch.float32) / 255.0 - self.mean) / self.std
         x = x.permute(0, 3, 1, 2)
-        logits = self.decode_head(self.backbone(x)).to(torch.float32)
+        ax = self.model_axis
+        logits = self.decode_head(self.backbone(x, ax), ax).to(torch.float32)
         logits = F.interpolate(logits, size=images.shape[1:3],
                                mode='bilinear', align_corners=False)
         return logits.permute(0, 2, 3, 1)

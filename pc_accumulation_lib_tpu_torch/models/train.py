@@ -8,13 +8,15 @@ on the card and in float32 on the CPU; weights, their gradients, the
 optimizer state and the batch norms are float32.
 
 On a ('data', 'model') mesh (parallel/mesh.make_mesh) the step is data
-parallel, as the JAX trainer's is with its batch on P('data'): every rank
-holds the whole model, takes its slice of the global batch, normalizes
-with the global batch's statistics, and its gradients are summed over the
-data axis, so Adam moves every rank's weights alike. Tensor parallelism
-(the JAX package's param_spec / shard_variables over 'model') is not
-ported (ROADMAP queue 1 item 2). make_pipelined_train_setup is the GPipe
-trainer over a ('pp',) mesh (parallel/pipeline.py).
+and tensor parallel, as the JAX trainer's is with its batch on P('data')
+and its parameters placed by param_spec: every rank takes its data
+rank's slice of the global batch; with a 'model' axis above 1 the wide
+layers are cut over it (shard_variables) and the forward is tensor
+parallel (parallel/tensor_parallel.py); batch norms take the statistics
+of the global batch over the data axis; the gradients are summed over
+the data axis, so Adam moves every data rank's weights alike.
+make_pipelined_train_setup is the GPipe trainer over a ('pp',) mesh
+(parallel/pipeline.py).
 """
 from __future__ import annotations
 
@@ -47,17 +49,96 @@ def cross_entropy_loss(logits, labels):
     return nll / (labels != IGNORE_LABEL).sum().clamp(min=1)
 
 
-def _data_axis(mesh):
-    """The data-parallel width of a ('data', 'model') mesh; a 'model'
-    axis above 1 asks for tensor parallelism, which is not ported."""
+# param_spec's width: a conv with this many output channels or more, and
+# its batch norm, are sharded over 'model'.
+TP_MIN_CHANNELS = 256
+
+
+def param_spec(name: str, tensor) -> tuple:
+    """The JAX package's TP rule in torch layout: a 4-D conv weight (O,
+    I, kh, kw) with O >= 256 is sharded over 'model' on dim 0 (JAX shards
+    the last dim of (kh, kw, I, O)), a 1-D tensor of at least 256 (batch
+    norm scales, shifts and running statistics) on dim 0; the rest is
+    replicated. Returns the PartitionSpec-like tuple of axis names per
+    dim, () when replicated."""
+    del name
+    if tensor.ndim == 4 and tensor.shape[0] >= TP_MIN_CHANNELS:
+        return ('model', None, None, None)
+    if tensor.ndim == 1 and tensor.shape[0] >= TP_MIN_CHANNELS:
+        return ('model',)
+    return ()
+
+
+def shard_variables(model, mesh):
+    """Keep, in place, this rank's slice of every tensor that param_spec
+    shards (parameters and running statistics): rows [r*O/tp,
+    (r+1)*O/tp) for model rank r of tp. The Parameter objects stay the
+    same, so an optimizer built over them before stays valid. Sets
+    ``model.model_axis`` and ``model.mesh``; the forward is then tensor
+    parallel. Raises
+    ValueError when tp does not divide a sharded dim. Returns the
+    model."""
     from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
-    names = tuple(mesh.mesh_dim_names)
-    if 'model' in names and pmesh.axis_size(mesh, 'model') > 1:
-        raise NotImplementedError(
-            f"a 'model' axis of {pmesh.axis_size(mesh, 'model')}: tensor "
-            'parallelism (TP: param_spec, shard_variables) is not ported '
-            '(ROADMAP queue 1 item 2); use a (data, 1) mesh')
-    return pmesh.axis_size(mesh, 'data')
+    from pc_accumulation_lib_tpu_torch.parallel.tensor_parallel import (
+        ModelAxis)
+    tp = pmesh.axis_size(mesh, 'model')
+    named = model.state_dict(keep_vars=True)
+    sharded = [k for k, v in named.items() if param_spec(k, v)]
+    bad = [k for k in sharded if named[k].shape[0] % tp]
+    if bad:
+        raise ValueError(
+            f"a 'model' axis of {tp} does not divide {bad[:3]}: param_spec "
+            f'shards conv weights with at least {TP_MIN_CHANNELS} output '
+            f'channels and 1-D tensors of at least {TP_MIN_CHANNELS} on '
+            'dim 0 (multiples of 256 in this model)')
+    r = pmesh.axis_rank(mesh, 'model')
+    for k in sharded:
+        t = named[k]
+        n = t.shape[0] // tp
+        t.data = t.data[r * n:(r + 1) * n].clone()
+    model.model_axis = ModelAxis(mesh, 'model', frozenset(sharded))
+    model.mesh = mesh
+    return model
+
+
+def shard_named(model, named):
+    """This rank's slices of full named tensors ({state-dict or parameter
+    name: tensor}) for a model cut by shard_variables; replicated ones,
+    and every one of a model that is not cut, as they are."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    ax = model.model_axis
+    if ax is None:
+        return dict(named)
+    tp = pmesh.axis_size(ax.mesh, ax.axis)
+    r = pmesh.axis_rank(ax.mesh, ax.axis)
+    out = dict(named)
+    for k in named.keys() & ax.sharded:
+        n = named[k].shape[0] // tp
+        out[k] = named[k][r * n:(r + 1) * n].clone()
+    return out
+
+
+def gather_named(model, named):
+    """Full tensors of a model cut by shard_variables from this rank's
+    named ones ({state-dict or parameter name: tensor}, e.g. its state
+    dict, gradients or Adam moments): the sharded ones gathered over the
+    model axis in one collective, which every rank of the axis must
+    join; replicated ones, and every one of a model that is not cut, as
+    they are."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    ax = model.model_axis
+    out = dict(named)
+    keys = sorted(named.keys() & ax.sharded) if ax is not None else []
+    if not keys:
+        return out
+    rows = pmesh.all_gather(torch.cat([named[k].reshape(-1) for k in keys]),
+                            ax.mesh, ax.axis)
+    at = 0
+    for k in keys:
+        t = named[k]
+        out[k] = rows[:, at:at + t.numel()].reshape(-1, *t.shape[1:])
+        at += t.numel()
+    return out
 
 
 def make_train_setup(lr: float = 1e-3, img_hw=(64, 128), seed: int = 0,
@@ -74,23 +155,39 @@ def make_train_setup(lr: float = 1e-3, img_hw=(64, 128), seed: int = 0,
     shapes do not depend on it. Weights are initialized from ``seed``
     (models/resnet_semseg.init_params).
 
-    ``mesh``: a ('data', 'model') DeviceMesh with a 'model' axis of 1.
-    Every rank then passes the same global batch (B divisible by the
-    data size, else ValueError) and trains on its slice; the loss is the
-    global one (the ranks' NLL sums over the global valid count, clamped
-    at 1), the gradients are summed over the data axis, and the returned
-    loss is the same on every rank."""
+    ``mesh``: a ('data', 'model') DeviceMesh. Every rank then passes the
+    same global batch (B divisible by the data size, else ValueError);
+    a data rank trains on its slice of it, the model ranks of one data
+    rank on the same slice. A 'model' axis above 1 cuts the model
+    (shard_variables: ValueError when it does not divide a sharded dim;
+    full weights load into it through shard_named). Batch norms take
+    the statistics of the global batch over the data axis. The loss is
+    the global one (the data ranks' NLL sums over the global valid
+    count, clamped at 1), computed on every model rank from the
+    replicated logits; the gradients are summed over the data axis only,
+    and the replicated tensors' gradients and the loss are then taken
+    from model rank 0, so they stay bit-equal across model ranks where
+    cuDNN's backward is not deterministic. The returned loss is the same
+    on every rank."""
     del img_hw
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('make_train_setup: no CUDA device')
-    dp = 1 if mesh is None else _data_axis(mesh)
     if compute_dtype is None:
         compute_dtype = (torch.bfloat16 if device.type == 'cuda'
                          else torch.float32)
     kwargs = {} if stage_sizes is None else {'stage_sizes': stage_sizes}
     model = ResNet50DilatedFCN(compute_dtype=compute_dtype, **kwargs)
     init_params(model, torch.Generator().manual_seed(seed))
+    dp = tp = 1
+    if mesh is not None:
+        from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+        dp = pmesh.axis_size(mesh, 'data')
+        if 'model' in mesh.mesh_dim_names:
+            tp = pmesh.axis_size(mesh, 'model')
+        if tp > 1:
+            shard_variables(model, mesh)
+        model.mesh = mesh
     model.to(device).train()
     optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8,
@@ -108,13 +205,14 @@ def make_train_setup(lr: float = 1e-3, img_hw=(64, 128), seed: int = 0,
 
         return state, train_step
 
-    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
     for m in model.modules():
         if isinstance(m, _BN):
             m.data_axis = (mesh, 'data')
     r = pmesh.axis_rank(mesh, 'data')
+    replicated = ([p for k, p in model.named_parameters()
+                   if k not in model.model_axis.sharded] if tp > 1 else [])
 
-    def dp_train_step(state: TrainState, images, labels):
+    def mesh_train_step(state: TrainState, images, labels):
         if images.shape[0] % dp:
             raise ValueError(f'global batch {images.shape[0]} must be '
                              f'divisible by the data-parallel size {dp}')
@@ -129,16 +227,25 @@ def make_train_setup(lr: float = 1e-3, img_hw=(64, 128), seed: int = 0,
         n_valid = pmesh.psum((labels != IGNORE_LABEL).sum(), mesh, 'data')
         loss = nll / n_valid.clamp(min=1)
         loss.backward()
-        grads = [p.grad for p in state.model.parameters()]
-        flat = pmesh.psum(torch.cat([g.reshape(-1) for g in grads]), mesh,
-                          'data')
-        for g, summed in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(summed.view_as(g))
+        loss = loss.detach()
+        grads = [p.grad for p in state.model.parameters()] + [loss]
+        _copy_flat(grads, pmesh.psum(_flat(grads), mesh, 'data'))
+        if tp > 1:
+            grads = [p.grad for p in replicated] + [loss]
+            _copy_flat(grads, pmesh.broadcast(_flat(grads), mesh, 'model'))
         state.optimizer.step()
-        return (state._replace(step=state.step + 1),
-                pmesh.psum(loss.detach(), mesh, 'data'))
+        return state._replace(step=state.step + 1), loss
 
-    return state, dp_train_step
+    return state, mesh_train_step
+
+
+def _flat(tensors):
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _copy_flat(tensors, flat):
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def make_pipelined_train_setup(mesh, microbatch: int = 2, hw=(8, 16),

@@ -2,8 +2,9 @@
 
 Counterpart of __graft_entry__.dryrun_multichip: at tiny shapes, each
 rank of an n-rank process group runs
-  1. a data-parallel semseg train step on a (n, 1) ('data', 'model')
-     mesh (models/train.py);
+  1. a DP+TP semseg train step on a (n / tp, tp) ('data', 'model')
+     mesh, tp the largest power of two that divides n, at most 4
+     (models/train.py);
   2. the psum and tile point-sharded rasters on a (1, n) ('data',
      'points') mesh, the tile raster held to the psum one
      (parallel/sharded.py);
@@ -85,18 +86,23 @@ def _paths(rank, n, device, tmp):
     rng = np.random.default_rng(0)
     out = {}
 
-    # 1. data-parallel train step.
-    mesh = pmesh.make_mesh((n, 1), ('data', 'model'), dt)
+    # 1. DP+TP train step; tp must divide the sharded channel counts
+    # (multiples of 256).
+    tp = 1
+    while tp < 4 and n % (tp * 2) == 0:
+        tp *= 2
+    mesh = pmesh.make_mesh((n // tp, tp), ('data', 'model'), dt)
     state, step = train_mod.make_train_setup(
         stage_sizes=(1, 1, 1, 1), device=device, mesh=mesh,
         compute_dtype=torch.float32)
-    images = torch.as_tensor(rng.integers(0, 256, (2 * n, 32, 64, 3)),
+    b = 2 * (n // tp)
+    images = torch.as_tensor(rng.integers(0, 256, (b, 32, 64, 3)),
                              dtype=torch.float32, device=dev)
-    labels = torch.as_tensor(rng.integers(0, 19, (2 * n, 32, 64)),
-                             device=dev)
+    labels = torch.as_tensor(rng.integers(0, 19, (b, 32, 64)), device=dev)
     state, loss = step(state, images, labels)
     _check(bool(torch.isfinite(loss)), 'train step: non-finite loss')
     out['train_loss'] = round(float(loss), 4)
+    out['tp'] = tp
 
     # 2. point-sharded rasters: psum, and tile held to it.
     mesh_pts = pmesh.make_mesh((1, n), ('data', 'points'), dt)

@@ -257,3 +257,46 @@ def psum_replicated(x, mesh, axis: str):
     result's gradient as it is (JAX's psum into an axis-invariant value
     under shard_map)."""
     return _PsumReplicated.apply(x, mesh, axis)
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.rank, ctx.width = axis_rank(mesh, axis), x.shape[1]
+        rows = all_gather(x, mesh, axis)             # (n, B, c, ...)
+        return rows.movedim(0, 1).flatten(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.width
+        return g[:, lo:lo + ctx.width].contiguous(), None, None
+
+
+def gather_channels(x, mesh, axis: str):
+    """The ranks' channel slices (dim 1) of ``x`` concatenated in rank
+    order into the full tensor; the gradient of rank r's slice is slice r
+    of the result's gradient, with no reduction. A layer whose output
+    channels are sharded over ``axis`` hands its slice on through this
+    before a consumer that reads every channel (the all-gather of
+    Megatron's tensor parallelism)."""
+    return _GatherChannels.apply(x, mesh, axis)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axis), None, None
+
+
+def copy_to_axis(x, mesh, axis: str):
+    """The identity, whose gradient is the psum of the ranks' gradients:
+    the input, the same on every rank of ``axis``, of a layer whose
+    output channels are sharded over it, so that each rank's gradient of
+    the input is its slice's contribution (Megatron's f, the partner of
+    gather_channels)."""
+    return _CopyToAxis.apply(x, mesh, axis)

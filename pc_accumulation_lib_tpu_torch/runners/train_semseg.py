@@ -4,8 +4,10 @@ Counterpart of runners/train_semseg.py: trains the ResNet-50 FCN
 (models/train.py) on (image, label) pairs, with a checkpoint every
 ``ckpt_every`` steps and at the end (models/checkpoint.py). In a process
 group (parallel/mesh.initialize_multihost) every rank runs run() with the
-same arguments and trains data-parallel on a ('data', 'model') mesh of
-(world, 1); data rank 0 writes the checkpoints.
+same arguments and trains on a ('data', 'model') mesh of (dp, world /
+dp), as the JAX runner lays its devices out: data parallel over 'data',
+the rest of the ranks tensor parallel over 'model'; the rank at data 0
+and model 0 writes the checkpoints.
 
 Data format: .npz shards with arrays ``images`` (N,H,W,3) uint8 and
 ``labels`` (N,H,W) int (255 = ignore), e.g. produced by projecting
@@ -47,10 +49,11 @@ def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
         stage_sizes=None, log_every: int = 50, *, device='cuda'):
     """Train for ``steps`` steps on ``device`` (the card unless the
     caller passes 'cpu'). ``batch_size`` is the global batch. ``dp`` is
-    the data-parallel width: None takes the process group's world size (1
-    without a group); a width below it would leave ranks to tensor
-    parallelism, which is not ported. Returns (state, losses), the global
-    losses on every rank."""
+    the data-parallel width; the rest of the ranks go to tensor
+    parallelism. None (or 0) takes the JAX runner's default: the world
+    when it is odd, else half of it, so 2 ranks train on (1, 2) and 4 on
+    (2, 2). ValueError when dp does not divide the world. Returns (state,
+    losses), the global losses on every rank."""
     import torch.distributed as dist
 
     from pc_accumulation_lib_tpu_torch.models import checkpoint as ckpt
@@ -58,19 +61,15 @@ def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
     from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp = world if dp is None else dp
-    if dp < world:
-        raise NotImplementedError(
-            f'dp={dp} on {world} ranks: the ranks beyond the data axis '
-            'would be a tensor-parallel (TP) model axis, which is not '
-            'ported (ROADMAP queue 1 item 2)')
+    dp = dp or (world if world % 2 else world // 2)
     if dp > world:
         raise ValueError(f'dp={dp} exceeds the {world} ranks')
-    mesh, writer = None, True
+    if world % dp:
+        raise ValueError(f'dp={dp} does not divide the {world} ranks')
+    mesh = None
     if dist.is_initialized():
-        mesh = pmesh.make_mesh((dp, 1), ('data', 'model'),
+        mesh = pmesh.make_mesh((dp, world // dp), ('data', 'model'),
                                torch.device(device).type)
-        writer = pmesh.axis_rank(mesh, 'data') == 0
     shards = sorted(glob.glob(data_glob))
     if not shards:
         raise FileNotFoundError(f'no training shards match {data_glob!r}')
@@ -91,9 +90,9 @@ def run(data_glob: str, steps: int = 1000, batch_size: int = 8,
         losses.append(float(loss))
         if step_i % log_every == 0:
             print(f'step {step_i} | loss {np.mean(losses[-log_every:]):.4f}')
-        if writer and ckpt_every and step_i % ckpt_every == 0:
+        if ckpt_every and step_i % ckpt_every == 0:
             ckpt.save_train_state(ckpt_dir, step_i, state)
-    if writer and ckpt_every and steps % ckpt_every:
+    if ckpt_every and steps % ckpt_every:
         ckpt.save_train_state(ckpt_dir, steps, state)
     return state, losses
 
@@ -108,7 +107,8 @@ def main(argv=None):
     parser.add_argument('--ckpt_dir', type=str, default='semseg_ckpt')
     parser.add_argument('--ckpt_every', type=int, default=500)
     parser.add_argument('--dp', type=int, default=None,
-                        help='data-parallel width (default: every rank)')
+                        help='data-parallel axis size (rest goes to TP; '
+                        'default: the world when odd, else half of it)')
     parser.add_argument('--device', type=str, default='cuda')
     parser.add_argument('--coordinator_address', type=str, default=None)
     parser.add_argument('--num_processes', type=int, default=None)

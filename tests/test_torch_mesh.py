@@ -220,7 +220,10 @@ def test_step_window_growth_fits_4_ranks(runs, case):
 
 
 def test_dryrun_multichip_4():
+    """Step 1 trains DP+TP with the JAX dryrun's tp rule (the largest
+    power of two dividing 4, at most 4: a (1, 4) mesh)."""
     summary = dryrun.dryrun_multichip(4, device='cpu')
+    assert summary['tp'] == 4 and np.isfinite(summary['train_loss'])
     assert summary['job_bevs'] >= 2 and summary['mesh_step_bevs'] == 4
     assert summary['streams'] == 2 and summary['tile_vs_psum'] <= 4e-3
 

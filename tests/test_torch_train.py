@@ -294,12 +294,13 @@ def test_run_trains_and_checkpoints(shards, tmp_path):
     assert sorted(os.listdir(ckpt_dir), key=int) == ['2', '4', '5']
     _equal_states(tckpt.restore_train_state(ckpt_dir, _port_setup()[0]),
                   state)
-    # Data parallelism needs as many ranks; a 'model' axis above 1 asks
-    # for tensor parallelism, which the port does not have.
+    # Data parallelism needs as many ranks; a 'model' axis must divide
+    # the sharded channel counts (multiples of 256).
     with pytest.raises(ValueError, match='exceeds the 1 ranks'):
         trun.run(data_glob, steps=1, dp=2, device='cpu')
     tp_mesh = types.SimpleNamespace(mesh_dim_names=('data', 'model'),
-                                    size=lambda dim: (1, 2)[dim])
-    with pytest.raises(NotImplementedError, match='tensor parallelism'):
+                                    size=lambda dim: (1, 3)[dim])
+    with pytest.raises(ValueError, match="'model' axis of 3 does not "
+                       'divide.*param_spec'):
         ttrain.make_train_setup(stage_sizes=STAGES, device='cpu',
                                 mesh=tp_mesh)

@@ -546,7 +546,7 @@ def train_dp_cases(rank, n, tmp, named_path, data_glob):
         out['odd_batch'] = str(e)
     ckpt_dir = os.path.join(tmp, 'ckpt')
     st, losses = trun.run(data_glob, steps=3, batch_size=2,
-                          ckpt_dir=ckpt_dir, ckpt_every=2,
+                          ckpt_dir=ckpt_dir, ckpt_every=2, dp=n,
                           stage_sizes=TRAIN_STAGES, log_every=3,
                           device='cpu')
     out['run_losses'] = losses
@@ -568,9 +568,9 @@ def pipeline_batch():
 
 def train_pp_cases(rank, n, tmp, stage_path, data_glob):
     """GPipe over an n-stage ('pp',) mesh from the carried stage weights:
-    forward, gradients, three pipelined train steps; the TP refusals."""
+    forward, gradients, three pipelined train steps; train_semseg.run
+    with dp below the world, which trains DP+TP on (dp, n / dp)."""
     from pc_accumulation_lib_tpu_torch.models import train as ttrain
-    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
     from pc_accumulation_lib_tpu_torch.parallel import pipeline as pp
     from pc_accumulation_lib_tpu_torch.runners import train_semseg as trun
     mesh = pp.make_pipeline_mesh(n, 'cpu')
@@ -595,17 +595,209 @@ def train_pp_cases(rank, n, tmp, stage_path, data_glob):
     for _ in range(3):
         state, loss = step(state, xs, ys)
         out['losses'].append(float(loss))
+    st, losses = trun.run(data_glob, steps=3, batch_size=2, dp=n // 2,
+                          ckpt_dir=os.path.join(tmp, 'ckpt_tp'),
+                          ckpt_every=0, stage_sizes=TRAIN_STAGES,
+                          log_every=3, device='cpu')
+    out['dp_below_world'] = dict(layout=mesh_layout(st.model),
+                                 losses=losses)
     try:
-        trun.run(data_glob, steps=1, batch_size=2, dp=2, device='cpu',
-                 stage_sizes=TRAIN_STAGES)
-        out['dp_below_world'] = None
-    except NotImplementedError as e:
-        out['dp_below_world'] = str(e)
-    tp = pmesh.make_mesh((n // 2, 2), ('data', 'model'), 'cpu')
-    try:
-        ttrain.make_train_setup(stage_sizes=TRAIN_STAGES, device='cpu',
-                                mesh=tp)
-        out['tp'] = None
-    except NotImplementedError as e:
-        out['tp'] = str(e)
+        trun.run(data_glob, steps=1, dp=3, device='cpu')
+    except ValueError as e:
+        out['dp_below_world']['dp_3'] = str(e)
     save(tmp, f'pp_r{rank}', out)
+
+
+def mesh_layout(model):
+    """(data, model) axis sizes of the mesh a model was cut over."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    mesh = model.model_axis.mesh
+    return (pmesh.axis_size(mesh, 'data'), pmesh.axis_size(mesh, 'model'))
+
+
+# --- tests/test_torch_tp.py ---------------------------------------------
+
+def _numpy(named):
+    return {k: v.detach().numpy().copy() for k, v in named.items()}
+
+
+def _grads(model):
+    return {k: p.grad for k, p in model.named_parameters()}
+
+
+def _stats(model):
+    return {k: v for k, v in model.state_dict().items() if 'running' in k}
+
+
+def _full_state(state):
+    """A train state's model tensors and Adam moments, gathered to full
+    tensors by name (moments as '<param>.exp_avg', '.exp_avg_sq')."""
+    from pc_accumulation_lib_tpu_torch.models import train as ttrain
+    model = state.model
+    out = ttrain.gather_named(model, model.state_dict())
+    params = dict(model.named_parameters())
+    for m in ('exp_avg', 'exp_avg_sq'):
+        moments = ttrain.gather_named(model, {
+            k: state.optimizer.state[p][m] for k, p in params.items()})
+        out.update({f'{k}.{m}': v for k, v in moments.items()})
+    return out
+
+
+def _unequal(a, b):
+    """Names whose tensors differ in any bit, or are missing from one."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def _replicated_unequal(named, sharded, group=None):
+    """Names of replicated tensors that differ between the ranks of
+    ``group`` (the world by default), each rank's held to the first's."""
+    keys = sorted(k for k in named if k not in sharded)
+    flat = torch.cat([named[k].reshape(-1).double() for k in keys])
+    rows = [torch.empty_like(flat)
+            for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, flat, group=group)
+    bad = set()
+    for row in rows[1:]:
+        at = 0
+        for k in keys:
+            m = named[k].numel()
+            if not torch.equal(row[at:at + m], rows[0][at:at + m]):
+                bad.add(k)
+            at += m
+    return sorted(bad)
+
+
+def train_tp_cases(rank, n, tmp, named_path, data_glob):
+    """DP+TP training on a (n / 2, 2) ('data', 'model') mesh from the
+    carried weights, three steps; rank 0 also runs the one-device step
+    and saves the full tensors the test holds to JAX. Layout checks,
+    checkpoints and weight files across layouts, and train_semseg.run at
+    its default layout are judged here, bit for bit, and saved as the
+    names that differ; every file written is removed."""
+    import shutil
+
+    from pc_accumulation_lib_tpu_torch.models import checkpoint as tckpt
+    from pc_accumulation_lib_tpu_torch.models import train as ttrain
+    from pc_accumulation_lib_tpu_torch.models.semseg import (
+        load_named_tensors, load_semseg_model)
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    from pc_accumulation_lib_tpu_torch.runners import train_semseg as trun
+    mesh = pmesh.make_mesh((n // 2, 2), ('data', 'model'), 'cpu')
+
+    def setup(mesh=mesh, seed=0, full=None):
+        """make_train_setup from ``seed``, then the ``full`` state dict
+        (a one-device model's) loaded in the model's layout."""
+        state, step = ttrain.make_train_setup(
+            lr=TRAIN_LR, seed=seed, stage_sizes=TRAIN_STAGES,
+            compute_dtype=torch.float32, device='cpu', mesh=mesh)
+        if full is not None:
+            state.model.load_state_dict(ttrain.shard_named(state.model,
+                                                           full))
+        return state, step
+
+    def batch(i):
+        return [torch.from_numpy(a) for a in train_batch(i)]
+
+    out = {}
+    state, step = setup()
+    sharded = state.model.model_axis.sharded
+    out['sharded'] = sorted(sharded)
+    # shard_variables keeps rows [r*O/2, (r+1)*O/2) of the seed's tensors.
+    seeded = setup(mesh=None)[0].model
+    out['unsliced'] = _unequal(state.model.state_dict(),
+                               ttrain.shard_named(state.model,
+                                                  seeded.state_dict()))
+    # The carried weights, loaded into a one-device model by name.
+    with np.load(named_path) as d:
+        load_named_tensors(seeded, {k: torch.from_numpy(v)
+                                    for k, v in d.items()})
+    carried = seeded.state_dict()
+    del seeded
+    state.model.load_state_dict(ttrain.shard_named(state.model, carried))
+    # The backward alone: each rank's local gradients of its data rank's
+    # mean loss, before the step's collectives.
+    probe, _ = setup(full=carried)
+    d = pmesh.axis_rank(mesh, 'data')
+    images, labels = (t[d:d + 1] for t in batch(0))
+    ttrain.cross_entropy_loss(probe.model(images), labels).backward()
+    out['grads_unequal'] = _replicated_unequal(
+        _grads(probe.model), sharded, mesh.get_group('model'))
+    del probe
+
+    out['losses'] = []
+    for i in range(TRAIN_STEPS):
+        state, loss = step(state, *batch(i))
+        out['losses'].append(float(loss))
+        if i == 0:
+            grads = _numpy(ttrain.gather_named(state.model,
+                                               _grads(state.model)))
+            stats = _numpy(ttrain.gather_named(state.model,
+                                               _stats(state.model)))
+        out[f'replicas_unequal_{i}'] = _replicated_unequal(
+            state.model.state_dict(), sharded)
+    full = ttrain.gather_named(state.model, state.model.state_dict())
+    if rank == 0:
+        out.update(grads=grads, stats=stats, after=_numpy(full))
+        one, one_step = setup(mesh=None, full=carried)
+        out['one'] = {'losses': []}
+        for i in range(TRAIN_STEPS):
+            one, loss = one_step(one, *batch(i))
+            out['one']['losses'].append(float(loss))
+            if i == 0:
+                out['one'].update(grads=_numpy(_grads(one.model)),
+                                  stats=_numpy(_stats(one.model)))
+        out['one']['after'] = _numpy(one.model.state_dict())
+    del grads, stats
+
+    # Checkpoints: the TP state restored on one device and saved there,
+    # restored into TP; both go on training as the original does.
+    tp_dir, one_dir = (os.path.join(tmp, f'ckpt_{k}') for k in ('tp', 'one'))
+    tckpt.save_train_state(tp_dir, state.step, state)
+    tp_state = _full_state(state)
+    if rank == 0:
+        out['ckpt_files'] = sorted(os.listdir(tp_dir))
+        one = tckpt.restore_train_state(tp_dir, setup(mesh=None,
+                                                      seed=1)[0])
+        out['one_restored'] = (one.step, _unequal(_full_state(one),
+                                                  tp_state))
+        tckpt.save_train_state(one_dir, one.step, one)
+        out['one_restored_next'] = float(one_step(one, *batch(3))[1])
+        del one
+    dist.barrier()
+    local = {k: v.clone() for k, v in state.model.state_dict().items()}
+    back, back_step = setup(seed=1)
+    back = tckpt.restore_train_state(one_dir, back)
+    out['back'] = (back.step, _unequal(_full_state(back), tp_state),
+                   _unequal(back.model.state_dict(), local))
+    back, loss_back = back_step(back, *batch(3))
+    state, loss = step(state, *batch(3))
+    out['next'] = (float(loss), float(loss_back))
+    out['next_unequal'] = _unequal(_full_state(back), _full_state(state))
+    del back, tp_state, local
+
+    weights = os.path.join(tmp, 'weights.pt')
+    tckpt.save_semseg_weights(state.model, weights)
+    full = ttrain.gather_named(state.model, state.model.state_dict())
+    dist.barrier()
+    if rank == 0:
+        out['weights_unequal'] = _unequal(load_semseg_model(
+            weights, stage_sizes=TRAIN_STAGES, device='cpu').model
+            .state_dict(), full)
+    del full
+
+    ckpt_dir = os.path.join(tmp, 'ckpt_run')
+    st, losses = trun.run(data_glob, steps=3, batch_size=2,
+                          ckpt_dir=ckpt_dir, ckpt_every=2,
+                          stage_sizes=TRAIN_STAGES, log_every=3,
+                          device='cpu')
+    out['run'] = dict(layout=mesh_layout(st.model), losses=losses,
+                      step=st.step)
+    dist.barrier()
+    out['run']['ckpts'] = sorted(os.listdir(ckpt_dir), key=int)
+    dist.barrier()
+    if rank == 0:
+        for path in (tp_dir, one_dir, ckpt_dir):
+            shutil.rmtree(path)
+        os.remove(weights)
+    save(tmp, f'tp{n}_r{rank}', out)
