@@ -38,7 +38,13 @@ to sparse_step_path's buffers). Tensor parallelism: train_tp_path (the
 training runner at its default (1, 2) layout on the two ranks, full
 depth and width, a float64 run held to one card's, float32 timed, the
 model-axis collectives' bytes), train_tp4_path ((2, 2) on four ranks,
-float64, held) and dryrun_multichip on 2 and 4 ranks.
+float64, held) and dryrun_multichip on 2 and 4 ranks. The host side of
+the upload wires: wire_path and oracle_wire_path time the native camera
+encoder against its numpy spec (held equal), and oracle_wire_path drives
+its frames again with each upload on a worker thread (samples held to
+the serial drive's). reference_api_path: obs2sem_vec_space against
+integrate on main_path's first frames, and the semseg wrapper's
+pred_batch / pred against predict at 376x1408.
 
     python3 chip_smoke.py
 
@@ -127,6 +133,9 @@ ORACLE_BEV = dict(type='sem', view_size=80, pixel_size=256, int_scaler=1.,
 # steps must come out at the stream's 2 m within 0.4 m.
 NUSC_RUNNER_FRAMES, NUSC_ICP_FRAMES = 100, 12
 STEP_ATOL = 0.4
+# reference_api_path: main_path's first frames through obs2sem_vec_space
+# and through integrate.
+REFERENCE_API_FRAMES = 6
 # Camera wire bytes per pixel (ops/imgcodec.py); the JAX bench's own runs
 # upload 'yuv420h' images and 'quantized' points (wire_path,
 # oracle_wire_path).
@@ -1202,13 +1211,14 @@ def phase_wire_path(dev, main_bevs, frames, rgb8_accum):
     tests hold that decode exactly to the JAX package's); reports the
     bytes of each wire part per frame on both wires, the host encode and
     the upload ms, and how far the rgb and intensity maps move from
-    main_path's rgb8 samples at the same seed."""
+    main_path's rgb8 samples at the same seed. The host encode is timed
+    native and as the numpy spec, held equal on that frame."""
     from pc_accumulation_lib_tpu_torch.ops import imgcodec
     t0 = time.perf_counter()
     res, _, bevs, _, accum = phase_main_path(dev, img_transfer='yuv420h',
                                              name=None)
     img = np.asarray(frames[1][0])[..., :3].astype(np.uint8)
-    enc_ms = _median_ms_host(lambda: imgcodec.encode_wire(img, 'yuv420h'))
+    enc_ms, enc_np_ms = _encode_ms(img, 'yuv420h')
     parts = {}
     for name, acc in (('rgb8', rgb8_accum), ('yuv420h', accum)):
         dob = acc.upload_obs(frames[1])
@@ -1226,6 +1236,7 @@ def phase_wire_path(dev, main_bevs, frames, rgb8_accum):
     check(decode_err <= 1e-4, decode_err)
     res.update(wire=('yuv420h', 'quantized'), bytes_per_frame=parts,
                encode_ms_per_frame=enc_ms,
+               encode_np_ms_per_frame=enc_np_ms,
                upload_ms_per_frame={
                    'rgb8': _upload_ms(rgb8_accum, frames[1:]),
                    'yuv420h': _upload_ms(accum, frames[1:])},
@@ -1233,6 +1244,67 @@ def phase_wire_path(dev, main_bevs, frames, rgb8_accum):
                vs_rgb8_main_path=_fidelity(bevs, main_bevs))
     emit('wire_path', t0, **res)
     return res
+
+
+def phase_reference_api_path(dev, frames):
+    """The reference API on main_path's configuration: its first frames
+    through obs2sem_vec_space on one accumulator and through integrate on
+    another (poses, T_new_prev, the window and the device buffer equal),
+    then the semseg wrapper's pred_batch and pred at 376x1408 against
+    predict on the card (class maps equal)."""
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
+    t0 = time.perf_counter()
+    semseg = SemSegTorch(dev, seed=0)
+    by_obs, by_integrate = (
+        _make_accum(dev, semseg, STREAM, ACCUM, ICP, HORIZON, BEV,
+                    use_gt_sem=False) for _ in range(2))
+    ss.segmented_stats_words.launches = 0
+    obs_s, integrate_s = [], []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for f in frames:
+            ts = time.perf_counter()
+            out = by_obs.obs2sem_vec_space(*f)
+            obs_s.append(time.perf_counter() - ts)
+            ts = time.perf_counter()
+            by_integrate.integrate([f])
+            integrate_s.append(time.perf_counter() - ts)
+            check(len(out) == 4 and out[0] is None and out[2] is None,
+                  'obs2sem_vec_space tuple')
+            check(out[1] == by_obs.poses[-1] == by_integrate.poses[-1],
+                  (out[1], by_integrate.poses[-1]))
+            check(np.array_equal(out[3], by_integrate._T_new_prev_last),
+                  'T_new_prev')
+    launches = ss.segmented_stats_words.launches
+    check(by_obs.poses == by_integrate.poses, 'poses')
+    check(by_obs.window_start == by_integrate.window_start
+          and by_obs.frame_count == by_integrate.frame_count == len(frames),
+          (by_obs.window_start, by_integrate.window_start))
+    for k in ('points', 'valid', 'frame_ids'):
+        check(torch.equal(getattr(by_obs.state, k),
+                          getattr(by_integrate.state, k)), k)
+    # Each against predict on the same batch: cuDNN may pick another
+    # convolution algorithm for another batch size, and the bf16 logits
+    # then round differently.
+    imgs = np.stack([np.asarray(f[0])[..., :3] for f in frames[:2]])
+    want = semseg.predict(torch.from_numpy(imgs).to(dev)).cpu().numpy()
+    want1 = semseg.predict(torch.from_numpy(imgs[1:]).to(dev)).cpu().numpy()
+    batch, one = semseg.pred_batch(imgs), semseg.pred(imgs[1])
+    check(batch.dtype == one.dtype == np.int32, (batch.dtype, one.dtype))
+    h, w = STREAM['img_hw']
+    check(batch.shape == (2, h, w) and one.shape == (1, 1, h, w),
+          (batch.shape, one.shape))
+    check(np.array_equal(batch, want), 'pred_batch != predict')
+    check(np.array_equal(one[0], want1) and np.array_equal(semseg(imgs[1]),
+                                                           want1[0]),
+          'pred != predict')
+    emit('reference_api_path', t0, frames=len(frames),
+         window_start=by_obs.window_start, window_frames=len(by_obs.poses),
+         poses_equal=True, stats_kernel_launches=launches,
+         obs2sem_vec_space_s=obs_s, integrate_s=integrate_s,
+         pred_batch_shape=list(batch.shape), pred_shape=list(one.shape),
+         class_maps_equal=True,
+         batch2_vs_batch1_agreement=float(np.mean(want[1] == want1[0])))
 
 
 def _runner_accum(dev, semseg, stream_cfg, bev, use_gt_sem, **kw):
@@ -1786,6 +1858,38 @@ def _check_tracking(accum):
     return dict(moving_car_dyn=moving, parked_car_dyn=parked)
 
 
+def _encode_ms(imgs, kind):
+    """Host encode of ``imgs`` on wire ``kind``: native and numpy spec
+    ms (median of 10), the two held equal byte for byte."""
+    from pc_accumulation_lib_tpu_torch.ops import imgcodec
+    spec = {'yuv420': imgcodec.encode_yuv420_np,
+            'yuv420h': imgcodec.encode_yuv420h_np}[kind]
+    got, want = imgcodec.encode_wire(imgs, kind), spec(imgs)
+    check(len(got) == len(want) and all(
+        g.shape == w.shape and g.tobytes() == w.tobytes()
+        for g, w in zip(got, want)), f'native {kind} encode != spec')
+    return (_median_ms_host(lambda: imgcodec.encode_wire(imgs, kind)),
+            _median_ms_host(lambda: spec(imgs)))
+
+
+def _oracle_samples_held(a, b):
+    """Two oracle drives' samples, in order: road, dynamic, rgb and
+    elevation maps equal, every map within SELFTEST_ATOL
+    (_exact_and_close), trajectories and lanes by count; returns the
+    largest difference."""
+    check(len(a) == len(b), (len(a), len(b)))
+
+    def maps(s):
+        return {k: v for k, v in s.items()
+                if isinstance(v, np.ndarray) or k.startswith('trajs')}
+
+    for sa, sb in zip(a, b):
+        check(len(sa.get('gt_lanes', ())) == len(sb.get('gt_lanes', ())),
+              'gt_lanes')
+    return _exact_and_close({i: maps(s) for i, s in enumerate(a)},
+                            {i: maps(s) for i, s in enumerate(b)})
+
+
 def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
                       name='oracle_path', bev=ORACLE_BEV, reference=None):
     """The NuScenes oracle-pose accumulator at the JAX bench's oracle
@@ -1799,13 +1903,21 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     worker thread, the native decoder must decode every one, and the
     ORACLE_HELD samples are held to the dense float16 raster on their
     captured inputs (u8 codes equal, elevation bit-exact); ``reference``
-    is oracle_path's result, whose rate is printed beside."""
+    is oracle_path's result, whose rate is printed beside.
+
+    On an encoded camera wire the phase also times the 6-camera encode,
+    native and numpy (held equal), and drives the same frames again on a
+    fresh accumulator with each frame's upload on one worker thread,
+    started before the previous frame's integrate, as the JAX bench
+    overlaps it (bench.py:166-195); its samples are held to the serial
+    drive's and both rates are reported."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pc_accumulation_lib_tpu_torch import config as cfg
     from pc_accumulation_lib_tpu_torch.bev import core, native_decode
+    from pc_accumulation_lib_tpu_torch.accum import pointpack
     from pc_accumulation_lib_tpu_torch.accum.nuscenes_oracle import (
-        NuScenesOracleSemanticPointCloudAccumulator)
+        NuScenesOracleSemanticPointCloudAccumulator, encode_multicam_obs)
     from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
         SyntheticNuScenesStream)
     from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
@@ -1815,20 +1927,25 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     stream = SyntheticNuScenesStream(n_frames=ORACLE_FRAMES, **ORACLE_STREAM)
     frames = [stream.frame(i) for i in range(ORACLE_FRAMES)]
     semseg = SemSegTorch(dev, seed=0)
-    accum = NuScenesOracleSemanticPointCloudAccumulator(
-        semseg_model=semseg, semseg_filters=NUSCENES_FILTERS,
-        bev_params=dict(bev), loc='synth', get_gt_lanes=True,
-        gt_lane_poses=_oracle_lane(stream, ORACLE_FRAMES),
-        accum_cfg=cfg.AccumConfig(**ORACLE_ACCUM), seed=0,
-        img_transfer=img_transfer, transfer_dtype=transfer_dtype,
-        device=dev)
     log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        for f in frames[:ORACLE_WARMUP]:
-            accum.integrate([f])
-        accum.generate_bev(present_idx=ORACLE_WARMUP - 2, bev_num=1,
-                           gen_future=True)
-    torch.cuda.synchronize()
+
+    def warm_accum():
+        accum = NuScenesOracleSemanticPointCloudAccumulator(
+            semseg_model=semseg, semseg_filters=NUSCENES_FILTERS,
+            bev_params=dict(bev), loc='synth', get_gt_lanes=True,
+            gt_lane_poses=_oracle_lane(stream, ORACLE_FRAMES),
+            accum_cfg=cfg.AccumConfig(**ORACLE_ACCUM), seed=0,
+            img_transfer=img_transfer, transfer_dtype=transfer_dtype,
+            device=dev)
+        with contextlib.redirect_stdout(log):
+            for f in frames[:ORACLE_WARMUP]:
+                accum.integrate([f])
+            accum.generate_bev(present_idx=ORACLE_WARMUP - 2, bev_num=1,
+                               gen_future=True)
+        torch.cuda.synchronize()
+        return accum
+
+    accum = warm_accum()
     stats_in = []
     split_stats = sort_raster.split_stats_from_words_flat
     sparse = bev['fetch_dtype'] == 'sparse'
@@ -1858,53 +1975,75 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
         wire.append(gen.last_harvest['wire_bytes'])
         return out
 
-    # Per frame: wall-clock, CUDA events around integrate and the
-    # generate_bev dispatch (device spans), and host time of integrate,
-    # the generate_bev dispatch and the previous frame's harvest.
-    samples, frame_s, spans, host_ms = [], [], [], []
+    def timed_loop(accum, overlap=False):
+        """The timed frames on ``accum``; with ``overlap`` each frame's
+        upload runs on a worker thread from the start of the previous
+        frame. Returns the samples, each frame's seconds, its CUDA events
+        (integrate, the generate_bev dispatch), its host ms (integrate,
+        the dispatch, the previous frame's harvest; with ``overlap`` also
+        the wait for its upload) and the loop's seconds."""
+        samples, frame_s, spans, host_ms = [], [], [], []
+        upx = ThreadPoolExecutor(max_workers=1) if overlap else None
+        ts = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                nxt = (upx.submit(accum.upload_obs, frames[ORACLE_WARMUP])
+                       if overlap else accum.upload_obs(
+                           frames[ORACLE_WARMUP]))
+                pending = None
+                for i in range(ORACLE_WARMUP, ORACLE_FRAMES):
+                    tf = time.perf_counter()
+                    if overlap:
+                        nxt = nxt.result()
+                        tw = time.perf_counter()
+                        up = (upx.submit(accum.upload_obs, frames[i + 1])
+                              if i + 1 < ORACLE_FRAMES else None)
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(3)]
+                    ev[0].record()
+                    accum.integrate([nxt])
+                    ev[1].record()
+                    th = time.perf_counter()
+                    handle = accum.generate_bev(
+                        present_idx=len(accum.poses) - 2, bev_num=1,
+                        gen_future=True, async_fetch=True)
+                    if ex is not None:     # drained on the worker thread
+                        handle = ex.submit(drained, handle).result
+                    ev[2].record()
+                    tu = time.perf_counter()
+                    if overlap:
+                        nxt = up
+                    elif i + 1 < ORACLE_FRAMES:
+                        nxt = accum.upload_obs(frames[i + 1])
+                    tp = time.perf_counter()
+                    if pending is not None:
+                        samples += pending()
+                    pending = handle
+                    spans.append(ev)
+                    host_ms.append([(th - tf) * 1e3, (tu - th) * 1e3,
+                                    (time.perf_counter() - tp) * 1e3]
+                                   + ([(tw - tf) * 1e3] if overlap else []))
+                    frame_s.append(time.perf_counter() - tf)
+                tf = time.perf_counter()
+                samples += pending()
+                torch.cuda.synchronize()
+                frame_s[-1] += time.perf_counter() - tf
+        finally:
+            if upx is not None:
+                upx.shutdown()
+        return samples, frame_s, spans, host_ms, time.perf_counter() - ts
+
     up_bytes, up_frames = accum.upload_bytes_total, accum.upload_frames
     torch.cuda.reset_peak_memory_stats()
     sort_raster.split_stats_from_words_flat = capture_stats
     ss.segmented_stats_words.launches = 0
-    ts = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(log):
-            nxt = accum.upload_obs(frames[ORACLE_WARMUP])
-            pending = None
-            for i in range(ORACLE_WARMUP, ORACLE_FRAMES):
-                tf = time.perf_counter()
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                ev[0].record()
-                accum.integrate([nxt])
-                ev[1].record()
-                th = time.perf_counter()
-                handle = accum.generate_bev(
-                    present_idx=len(accum.poses) - 2, bev_num=1,
-                    gen_future=True, async_fetch=True)
-                if ex is not None:     # drained on the worker thread
-                    handle = ex.submit(drained, handle).result
-                ev[2].record()
-                tu = time.perf_counter()
-                if i + 1 < ORACLE_FRAMES:
-                    nxt = accum.upload_obs(frames[i + 1])
-                tp = time.perf_counter()
-                if pending is not None:
-                    samples += pending()
-                pending = handle
-                spans.append(ev)
-                host_ms.append([(th - tf) * 1e3, (tu - th) * 1e3,
-                                (time.perf_counter() - tp) * 1e3])
-                frame_s.append(time.perf_counter() - tf)
-            tf = time.perf_counter()
-            samples += pending()
-            torch.cuda.synchronize()
-            frame_s[-1] += time.perf_counter() - tf
+        samples, frame_s, spans, host_ms, loop_s = timed_loop(accum)
     finally:
         sort_raster.split_stats_from_words_flat = split_stats
         gen._raster = raster
         if ex is not None:
             ex.shutdown()
-    loop_s = time.perf_counter() - ts
     launches = ss.segmented_stats_words.launches
     peak = torch.cuda.max_memory_allocated()
     n_timed = ORACLE_FRAMES - ORACLE_WARMUP
@@ -1980,8 +2119,38 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     check(wire_bytes['points'] == ORACLE_ACCUM['max_points_per_frame']
           * (13 if transfer_dtype == 'quantized' else 28), wire_bytes)
     if img_transfer != 'rgb8':
-        res['icp_frame'] = _icp_frame_on_wire(dev, semseg, stream,
-                                              img_transfer, transfer_dtype)
+        cams = np.stack([np.asarray(im)[..., :3].astype(np.uint8)
+                         for im in frames[-1]['images']])
+        enc_ms, enc_np_ms = _encode_ms(cams, img_transfer)
+        # The whole host side of an upload (point padding or pack, the
+        # camera stack and its encode), and the point pack alone.
+        n_pad = ORACLE_ACCUM['max_points_per_frame']
+        obs_ms = _median_ms_host(lambda: encode_multicam_obs(
+            frames[-1], n_pad, img_transfer, transfer_dtype))
+        pc = np.asarray(frames[-1]['pc'], np.float32)
+        pack_ms = (_median_ms_host(lambda: pointpack.pack_points7_np(
+            pc, n_pad)) if transfer_dtype == 'quantized' else None)
+        o_accum = warm_accum()
+        ss.segmented_stats_words.launches = 0
+        o_samples, o_frame_s, _, o_host_ms, o_loop_s = timed_loop(
+            o_accum, overlap=True)
+        o_launches = ss.segmented_stats_words.launches
+        check(o_launches == len(o_samples), (o_launches, len(o_samples)))
+        res.update(
+            encode_6cam_ms=enc_ms, encode_6cam_np_ms=enc_np_ms,
+            host_encode_obs_ms=obs_ms, pack_points_ms=pack_ms,
+            overlapped_upload=dict(
+                samples=len(o_samples), launches=o_launches,
+                samples_per_s_median=1.0 / statistics.median(o_frame_s[1:]),
+                samples_per_s_overall=len(o_samples) / o_loop_s,
+                frame_ms=[s * 1e3 for s in o_frame_s],
+                host_ms_median=dict(zip(
+                    ('integrate', 'generate_bev_dispatch', 'harvest',
+                     'upload_wait'),
+                    np.median(np.array(o_host_ms), axis=0).tolist())),
+                vs_serial_max_abs=_oracle_samples_held(o_samples, samples)),
+            icp_frame=_icp_frame_on_wire(dev, semseg, stream, img_transfer,
+                                         transfer_dtype))
     emit(name, t0, **res)
     return res, stats_in
 
@@ -3712,7 +3881,9 @@ def main():
     kern2 = phase_kernel2(dev)
     main_res, raster_in, main_bevs, frames, accum = phase_main_path(dev)
     wire = phase_wire_path(dev, main_bevs, frames, accum)
-    del frames, accum
+    del accum
+    phase_reference_api_path(dev, frames[:REFERENCE_API_FRAMES])
+    del frames
     on_path = phase_kernel_on_main_path(raster_in)
     del raster_in
     sparse, sparse_stats_in, sparse_rows = phase_sparse_step_path(dev,
@@ -3790,6 +3961,8 @@ def main():
                        'step_mesh2': mesh_step,
                        'step_yuv420h': wire['launches'],
                        'nuscenes_oracle_wire': oracle_wire['launches'],
+                       'nuscenes_oracle_wire_overlapped':
+                           oracle_wire['overlapped_upload']['launches'],
                        'nuscenes_runner_icp_wire':
                            oracle_wire['icp_frame']['launches'],
                        'kitti360_runner_rgb': rgb_runner['launches'],

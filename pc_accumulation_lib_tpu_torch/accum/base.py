@@ -97,6 +97,15 @@ class SemanticPointCloudAccumulator:
         self.rgbs: List = []
         self.semsegs: List = []
 
+    # ------------------------------------------------------------------
+    # Per-platform hooks
+    # ------------------------------------------------------------------
+    def integrate(self, observations: list):
+        raise NotImplementedError()
+
+    def obs2sem_vec_space(self, *args, **kwargs):
+        raise NotImplementedError()
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == 'cuda':

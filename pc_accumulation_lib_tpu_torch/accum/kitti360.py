@@ -368,6 +368,18 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
 
         return finalize if async_fetch else finalize()
 
+    def obs2sem_vec_space(self, rgb, pc: np.ndarray,
+                          sem_gt: Optional[np.ndarray] = None):
+        """Paint one observation into the world-frame buffer through the
+        frame step, as integrate([(rgb, pc, sem_gt)]) does (ICP against
+        the previous frame, the pose chain, eviction); the reference's
+        per-frame call. Returns (None, pose, None, T_new_prev): the newest
+        world-frame ego position and the transform from the previous ego
+        frame to the new one (T_world_k = T_world_{k-1} @
+        inv(T_new_prev))."""
+        self._dispatch_obs((rgb, pc, sem_gt))()
+        return None, self.poses[-1], None, self._T_new_prev_last
+
     def _pick_rung(self, ccap: int, ax: int) -> int:
         """The smallest rung the live-row bound proves sufficient (and,
         on a mesh, that the points axis divides); compact_cap otherwise."""

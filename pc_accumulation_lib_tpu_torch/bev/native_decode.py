@@ -17,9 +17,6 @@ raises with the compiler's output: there is no silent switch to numpy.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
@@ -27,10 +24,10 @@ import numpy as np
 
 from pc_accumulation_lib_tpu_torch.bev import core
 from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
+from pc_accumulation_lib_tpu_torch.utils import native
 
-_REPO = Path(__file__).resolve().parents[2]
-_SOURCE = _REPO / 'native' / 'bevdec.cpp'
-_LIBRARY = _REPO / 'build' / 'host' / 'libbevdec.so'
+_SOURCE = native.SOURCE_DIR / 'bevdec.cpp'
+_LIBRARY = native.BUILD_DIR / 'libbevdec.so'
 _lock = threading.Lock()
 _lib = None
 
@@ -38,23 +35,7 @@ _lib = None
 def build_library() -> Path:
     """Compile native/bevdec.cpp unless the build is newer than the
     source. Raises RuntimeError with g++'s output if it fails."""
-    if _LIBRARY.exists() and (_LIBRARY.stat().st_mtime
-                              >= _SOURCE.stat().st_mtime):
-        return _LIBRARY
-    _LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=_LIBRARY.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(['g++', '-O3', '-shared', '-fPIC', '-o', tmp,
-                               str(_SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'g++ failed to build {_SOURCE} '
-                               f'({proc.returncode}):\n{proc.stderr}')
-        os.replace(tmp, _LIBRARY)   # atomic: a concurrent build never
-    finally:                        # sees half a library
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _LIBRARY
+    return native.build_shared_library(_SOURCE, _LIBRARY)
 
 
 def load_library() -> ctypes.CDLL:

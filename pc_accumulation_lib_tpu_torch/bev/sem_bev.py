@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from pc_accumulation_lib_tpu_torch.bev import core, native_decode
+from pc_accumulation_lib_tpu_torch.ops import geometry
 from pc_accumulation_lib_tpu_torch.ops import trajectory as traj_ops
 from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
 
@@ -270,17 +271,6 @@ class SemBEVGenerator:
         return dict(a1=a1, a2=a2, b1=b1, b2=b2, i_mid=i_mid, j_mid=j_mid,
                     i_warp=i_warp, j_warp=j_warp, active=True)
 
-    @staticmethod
-    def _heading_rot_ang(ego_traj_present) -> float:
-        """Heading-aligned rotation: the last present ego segment points
-        up in the BEV."""
-        rot_ang = 0.5 * np.pi
-        if ego_traj_present is not None and len(ego_traj_present) > 1:
-            dx = ego_traj_present[-1][0] - ego_traj_present[-2][0]
-            dy = ego_traj_present[-1][1] - ego_traj_present[-2][1]
-            rot_ang += np.arctan2(dy, dx)
-        return float(np.pi - rot_ang)
-
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == 'cuda':
@@ -318,7 +308,8 @@ class SemBEVGenerator:
             if randomize:
                 rot_ang, dx, dy, zoom = self._draw_geom_aug()
             else:
-                rot_ang = self._heading_rot_ang(trajs.get('ego_traj_present'))
+                rot_ang = geometry.heading_rot_ang(
+                    trajs.get('ego_traj_present'))
                 dx, dy, zoom = 0.0, 0.0, 1.0
             w = self._draw_warp()
             vecs.append(base_params._replace(
@@ -747,7 +738,8 @@ class SemBEVGenerator:
         ignored."""
         points, valid, fids, gen_future = self._pack_pcs(pcs)
         if not do_warping:
-            rot_ang = self._heading_rot_ang(trajs.get('ego_traj_present'))
+            rot_ang = geometry.heading_rot_ang(
+                trajs.get('ego_traj_present'))
         hf = np.inf if self.height_filter is None else self.height_filter
         w = self._draw_warp()
         params = core.identity_params(window=(0, 1), present_frame=1,

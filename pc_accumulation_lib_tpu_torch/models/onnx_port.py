@@ -214,3 +214,18 @@ def load_onnx_weights(path: str, model) -> None:
         raise ValueError(
             f'ONNX port failed by name ({name_err}) and by structure '
             f'({struct_err})') from struct_err
+
+
+def export_named_tensors(model) -> Dict[str, np.ndarray]:
+    """The inverse of models/semseg.load_named_tensors: a SemSegTorch's
+    (or a ResNet50DilatedFCN's) weights and batch-norm running statistics
+    as {mmsegmentation name: OIHW / 1-D numpy array}, the names the JAX
+    package's onnx_port.convert_named_tensors reads; batch-norm step
+    counters, which it has no place for, are left out. A model cut by
+    models/train.shard_variables is gathered to full tensors first, so
+    every rank of its model axis calls this."""
+    from pc_accumulation_lib_tpu_torch.models.train import gather_named
+    module = getattr(model, 'model', model)
+    state = gather_named(module, module.state_dict())
+    return {k: v.detach().cpu().numpy() for k, v in state.items()
+            if not k.endswith('num_batches_tracked')}

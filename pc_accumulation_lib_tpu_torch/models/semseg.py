@@ -19,9 +19,11 @@ from pc_accumulation_lib_tpu_torch.models.resnet_semseg import (
 
 
 class SemSegTorch:
-    """__call__(rgb (H,W,3)) -> (H,W) int32 class map (numpy);
-    predict(images (B,H,W,3) tensor) -> (B,H,W) int32 tensor on the
-    device; the accumulator calls predict on device images."""
+    """pred(rgb) -> (1,1,H,W) int32 class map, the reference API's shape;
+    __call__(rgb (H,W,3)) -> (H,W); pred_batch(images (B,H,W,3)) ->
+    (B,H,W) for multi-camera frames (all numpy); predict(images
+    (B,H,W,3) tensor) -> (B,H,W) int32 tensor on the device; the
+    accumulator calls predict on device images."""
 
     def __init__(self, device='cuda', seed: int = 0,
                  stage_sizes: Optional[Sequence[int]] = None,
@@ -40,16 +42,26 @@ class SemSegTorch:
     def predict(self, images):
         return torch.argmax(self.model(images), dim=-1).to(torch.int32)
 
+    def pred_batch(self, images) -> np.ndarray:
+        """(B,H,W,3) host array, uint8 or float in [0, 255] -> (B,H,W)
+        int32 class maps: one forward on the device for all cameras."""
+        arr = torch.from_numpy(np.ascontiguousarray(np.asarray(images)))
+        return self.predict(arr.to(self.device)).cpu().numpy()
+
     def __call__(self, rgb) -> np.ndarray:
-        arr = torch.from_numpy(np.ascontiguousarray(np.asarray(rgb)[..., :3]))
-        return self.predict(arr[None].to(self.device))[0].cpu().numpy()
+        return self.pred_batch(np.asarray(rgb)[..., :3][None])[0]
+
+    def pred(self, rgb) -> np.ndarray:
+        """(1,1,H,W): the reference API's shape, its callers index
+        [0, 0]."""
+        return self(rgb)[None, None]
 
 
 def load_named_tensors(model, named: Dict[str, np.ndarray], *,
                        ignore_unused: bool = False) -> None:
     """Load mmsegmentation-named tensors ({name: OIHW / 1-D array}, as
-    the JAX package's onnx_port.export_named_tensors emits them, or an
-    ONNX file's initializers) into a ResNet50DilatedFCN (or the
+    onnx_port.export_named_tensors here or in the JAX package emits them,
+    or an ONNX file's initializers) into a ResNet50DilatedFCN (or the
     SemSegTorch holding one).
 
     Each parameter and running statistic is found under its own name or,

@@ -10,6 +10,7 @@ CUDA does neither.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -106,3 +107,16 @@ def grid_cell_index(px, py, pixel_size):
     row = P - 1 - py.clamp(-1, P).to(torch.int32)
     col = px.clamp(-1, P).to(torch.int32)
     return row * P + col
+
+
+def heading_rot_ang(ego_traj_present) -> float:
+    """Heading-aligned BEV rotation angle, the one applied when no random
+    augmentation is drawn: the last present ego segment of the (N,3)
+    trajectory points up in the BEV; pi/2 when N < 2 or the trajectory is
+    None. On the host."""
+    rot_ang = 0.5 * np.pi
+    if ego_traj_present is not None and len(ego_traj_present) > 1:
+        dx = ego_traj_present[-1][0] - ego_traj_present[-2][0]
+        dy = ego_traj_present[-1][1] - ego_traj_present[-2][1]
+        rot_ang += np.arctan2(dy, dx)
+    return float(np.pi - rot_ang)

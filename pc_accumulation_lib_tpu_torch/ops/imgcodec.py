@@ -9,8 +9,13 @@ Counterpart of ops/imgcodec.py. Two wires beside uint8 RGB ('rgb8',
     the three details quantized to 4 bits and packed two per byte) and
     chroma as 4x4 box means, 0.75 B/pixel.
 
-The host encoders are integer numpy (8.8 fixed point): they are the
-specification, bit-identical to the JAX package's. The decoders are
+The host encoders run in C++ (``native/imgenc.cpp``, built with g++ at
+first use into ``build/host/``, utils/native.py) through ctypes, which
+releases the GIL for the call: the encode runs on the upload worker
+thread. The integer numpy encoders (8.8 fixed point) are their
+specification, bit-identical to the JAX package's; the native code
+matches them bit for bit. There is no numpy fallback: a failed build
+raises. The decoders are
 torch ops that run on the device at the head of the accumulators' frame
 step: nearest chroma upsample (repeat-interleave), the Haar inverse for
 'yuv420h', three multiply-adds per pixel, then a clamp to [0, 255]. They
@@ -19,8 +24,13 @@ with it exactly; grayscale roundtrips 'yuv420' bit-exactly.
 """
 from __future__ import annotations
 
+import ctypes
+import threading
+
 import numpy as np
 import torch
+
+from pc_accumulation_lib_tpu_torch.utils import native
 
 # Inverse BT.601 full range: R = Y + 1.402 V', G = Y - 0.344136 U' -
 # 0.714136 V', B = Y + 1.772 U' (U' = U - 128, V' = V - 128).
@@ -32,6 +42,30 @@ _UB = 1.772
 _HQ_SHIFT = 4   # Haar detail quantizer step = 1 << _HQ_SHIFT (2x scale)
 
 WIRES = ('yuv420', 'yuv420h')
+
+_SOURCE = native.SOURCE_DIR / 'imgenc.cpp'
+_LIBRARY = native.BUILD_DIR / 'libimgenc.so'
+_lock = threading.Lock()
+_lib = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the encoder once per process. A
+    ctypes.CDLL call releases the GIL for its duration."""
+    global _lib
+    if _lib is not None:      # lock-free: runs per frame on upload threads
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(native.build_shared_library(_SOURCE,
+                                                              _LIBRARY)))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.imgenc_yuv420.argtypes = [p, ctypes.c_long, i, i, p, p]
+            lib.imgenc_yuv420.restype = i
+            lib.imgenc_yuv420h.argtypes = [p, ctypes.c_long, i, i, p, p, p]
+            lib.imgenc_yuv420h.restype = i
+            _lib = lib
+    return _lib
 
 
 def _yuv16(rgb: np.ndarray):
@@ -91,14 +125,69 @@ def encode_yuv420h_np(rgb: np.ndarray):
     return ll, det, _box_chroma(u16, v16, 4, 12)
 
 
+# Each wire's block side and the spec's words when a dim is not a multiple.
+_BLOCK = {'yuv420': (2, 'even image dims'), 'yuv420h': (4, 'H,W % 4 == 0')}
+
+
+def _native_input(rgb, kind: str):
+    """The (n, H, W, 3) C-contiguous uint8 stack the native encoder reads,
+    its leading shape, H and W. Refuses what the spec refuses (dims not
+    multiples of the wire's block, with its ValueError) and any dtype but
+    uint8 (TypeError)."""
+    rgb = np.asarray(rgb)
+    h, w = rgb.shape[-3], rgb.shape[-2]
+    k, rule = _BLOCK[kind]
+    if h % k or w % k:
+        raise ValueError(f'{kind} needs {rule}, got {h}x{w}')
+    if rgb.dtype != np.uint8:
+        raise TypeError(f'{kind} encodes uint8 RGB, got {rgb.dtype}')
+    lead = rgb.shape[:-3]
+    n = int(np.prod(lead, dtype=np.int64))
+    # Channels past the third are not read, as in the spec.
+    return np.ascontiguousarray(rgb[..., :3]).reshape(n, h, w, 3), lead, h, w
+
+
+def _check(rc: int, fn: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f'{fn} failed (rc={rc})')
+
+
+def encode_yuv420(rgb: np.ndarray):
+    """encode_yuv420_np in native code: RGB uint8 (..., H, W, >=3) ->
+    (y (..., H, W), uv (..., H/2, W/2, 2)), bit-identical."""
+    src, lead, h, w = _native_input(rgb, 'yuv420')
+    lib = load_library()
+    y = np.empty((src.shape[0], h, w), np.uint8)
+    uv = np.empty((src.shape[0], h // 2, w // 2, 2), np.uint8)
+    _check(lib.imgenc_yuv420(src.ctypes.data, src.shape[0], h, w,
+                             y.ctypes.data, uv.ctypes.data), 'imgenc_yuv420')
+    return y.reshape(lead + y.shape[1:]), uv.reshape(lead + uv.shape[1:])
+
+
+def encode_yuv420h(rgb: np.ndarray):
+    """encode_yuv420h_np in native code: RGB uint8 (..., H, W, >=3) ->
+    (ll (..., H/2, W/2), det (..., 3, H/2, W/4), uv (..., H/4, W/4, 2)),
+    bit-identical."""
+    src, lead, h, w = _native_input(rgb, 'yuv420h')
+    lib = load_library()
+    n = src.shape[0]
+    ll = np.empty((n, h // 2, w // 2), np.uint8)
+    det = np.empty((n, 3, h // 2, w // 4), np.uint8)
+    uv = np.empty((n, h // 4, w // 4, 2), np.uint8)
+    _check(lib.imgenc_yuv420h(src.ctypes.data, n, h, w, ll.ctypes.data,
+                              det.ctypes.data, uv.ctypes.data),
+           'imgenc_yuv420h')
+    return tuple(a.reshape(lead + a.shape[1:]) for a in (ll, det, uv))
+
+
 def encode_wire(rgb: np.ndarray, kind: str):
-    """Encode an RGB uint8 stack for the wire ``kind``: 'yuv420' gives
-    (y, uv), 'yuv420h' (ll, det, uv); decode_wire tells them apart by the
-    tuple's length."""
+    """Encode an RGB uint8 stack for the wire ``kind`` (native encoder):
+    'yuv420' gives (y, uv), 'yuv420h' (ll, det, uv); decode_wire tells
+    them apart by the tuple's length."""
     if kind == 'yuv420':
-        return encode_yuv420_np(rgb)
+        return encode_yuv420(rgb)
     if kind == 'yuv420h':
-        return encode_yuv420h_np(rgb)
+        return encode_yuv420h(rgb)
     raise ValueError(f'unknown image wire encoding {kind!r}')
 
 

@@ -90,6 +90,15 @@ def _inverse_quadratic(x, a_1, a_2):
     return np.where(abs(a_2) < 1e-6, x, inv)
 
 
+def warp_points_xy(x, y, a_1, a_2, b_1, b_2, I, J):
+    """Inverse-warp point coordinates: x by the a-params, y by the
+    b-params, int-rounded and clipped to [0, I-1] and [0, J-1]. Host
+    numpy; returns (xw, yw) float64."""
+    xw = np.clip(_inverse_quadratic(x, a_1, a_2), 0, I - 1)
+    yw = np.clip(_inverse_quadratic(y, b_1, b_2), 0, J - 1)
+    return xw, yw
+
+
 def warp_sparse_points(pnts, a_1, a_2, j_mid, j_warp, pixel_size):
     """Warp (N,>=2) pixel-coordinate points: x by the a-params, y by
     b-params recomputed from the reversed j anchor (the reference's axis
@@ -97,10 +106,9 @@ def warp_sparse_points(pnts, a_1, a_2, j_mid, j_warp, pixel_size):
     b_1_rev, b_2_rev = cal_warp_params(pixel_size - j_warp, j_mid,
                                        pixel_size - 1)
     out = np.asarray(pnts).copy()
-    out[:, 0] = np.clip(_inverse_quadratic(out[:, 0], a_1, a_2), 0,
-                        pixel_size - 1)
-    out[:, 1] = np.clip(_inverse_quadratic(out[:, 1], b_1_rev, b_2_rev), 0,
-                        pixel_size - 1)
+    out[:, 0], out[:, 1] = warp_points_xy(out[:, 0], out[:, 1], a_1, a_2,
+                                          b_1_rev, b_2_rev, pixel_size,
+                                          pixel_size)
     return out
 
 

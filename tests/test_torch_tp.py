@@ -277,6 +277,14 @@ def test_tp_weights_load_on_one_device(runs, layout):
 
 
 @pytest.mark.parametrize('layout', LAYOUTS)
+def test_tp_export_named_tensors_gathers(runs, layout):
+    """export_named_tensors of a TP model, called on every rank, gives
+    the full tensors under their names, batch-norm step counters left
+    out."""
+    assert runs['port'][layout][0]['export_unequal'] == []
+
+
+@pytest.mark.parametrize('layout', LAYOUTS)
 def test_train_semseg_run_takes_jax_layout(runs, layout):
     """train_semseg.run with no dp lays 2 ranks out as (1, 2) and 4 as
     (2, 2), the JAX runner's default; one set of checkpoints; the global

@@ -678,6 +678,7 @@ def train_tp_cases(rank, n, tmp, named_path, data_glob):
     import shutil
 
     from pc_accumulation_lib_tpu_torch.models import checkpoint as tckpt
+    from pc_accumulation_lib_tpu_torch.models import onnx_port as tport
     from pc_accumulation_lib_tpu_torch.models import train as ttrain
     from pc_accumulation_lib_tpu_torch.models.semseg import (
         load_named_tensors, load_semseg_model)
@@ -778,13 +779,18 @@ def train_tp_cases(rank, n, tmp, named_path, data_glob):
 
     weights = os.path.join(tmp, 'weights.pt')
     tckpt.save_semseg_weights(state.model, weights)
+    exported = tport.export_named_tensors(state.model)
     full = ttrain.gather_named(state.model, state.model.state_dict())
     dist.barrier()
     if rank == 0:
         out['weights_unequal'] = _unequal(load_semseg_model(
             weights, stage_sizes=TRAIN_STAGES, device='cpu').model
             .state_dict(), full)
-    del full
+        out['export_unequal'] = _unequal(
+            {k: torch.from_numpy(v) for k, v in exported.items()},
+            {k: v for k, v in full.items()
+             if not k.endswith('num_batches_tracked')})
+    del full, exported
 
     ckpt_dir = os.path.join(tmp, 'ckpt_run')
     st, losses = trun.run(data_glob, steps=3, batch_size=2,
