@@ -429,17 +429,24 @@ def _timing(raw, wrapper, keyed_rows, row_bytes, groups, n_weights,
     torch.cuda.synchronize()
     wrapper_us = (time.perf_counter() - t) * 1e6 / reps
     bound = _bound(keyed_rows, row_bytes, groups, n_weights, n_values)
-    # The wrapper runs the kernel and no other device operation. (The
+    # The wrapper runs the kernel and no other device operation: the one
+    # node of a CUDA graph that captures a call, and the one operation
+    # torch.profiler sees, where its sessions see the card at all. (The
     # profiler sometimes drops a launch's record, so fewer than one per
     # call can show; never another operation.)
+    graph_ops = _graph_ops(wrapper)
+    check(len(graph_ops) == 1 and 'segmented_stats_kernel' in graph_ops[0],
+          f'one device operation per call in a CUDA graph, got {graph_ops}')
     per_call, ops = _device_ops(wrapper)
-    check(len(ops) == 1 and 'segmented_stats_kernel' in ops[0]
-          and 0 < per_call <= 1,
+    check(per_call is None or (len(ops) == 1
+                               and 'segmented_stats_kernel' in ops[0]
+                               and 0 < per_call <= 1),
           f'one device operation per call, got {per_call}: {ops}')
     return dict(device_us=device_us, device_us_profiler=_profiler_us(raw),
                 wrapper_us=wrapper_us, **bound,
                 bound_share=bound['bound_us'] / device_us,
-                device_ops_per_call=ops, profiled_ops_per_call=per_call)
+                device_ops_per_call=ops, profiled_ops_per_call=per_call,
+                graph_ops_per_call=graph_ops)
 
 
 def _raw_words(ss, c2, w1, w2, G, nsplit=2):
@@ -462,10 +469,11 @@ def _raw_rows(ss, case):
 
 def _device_ops(fn, calls=5, tries=10):
     """The device operations (kernels, copies, sets) one call of ``fn``
-    runs, from torch.profiler over ``calls`` calls, tried again when it
-    records no device activity at all (a whole profiling session of the
-    card sometimes comes back empty): (operations per call, their
-    names)."""
+    runs, from torch.profiler over ``calls`` calls, tried again when a
+    session records no device activity: (operations per call, their
+    names). (None, None) when none of ``tries`` sessions records any:
+    while another process profiles a card of the same host, every session
+    of this one can come back empty for the rest of the run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -478,8 +486,64 @@ def _device_ops(fn, calls=5, tries=10):
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
-            break
-    return len(names) / calls, sorted(set(names))
+            return len(names) / calls, sorted(set(names))
+    return None, None
+
+
+# CUgraphNodeType (libcuda's cuda.h): the node types a stream
+# capture records.
+_GRAPH_NODE_TYPES = {0: 'kernel', 1: 'memcpy', 2: 'memset', 3: 'host',
+                     4: 'graph', 5: 'empty', 6: 'wait_event',
+                     7: 'event_record', 10: 'mem_alloc', 11: 'mem_free',
+                     12: 'batch_mem_op', 13: 'conditional'}
+
+
+def _graph_ops(fn):
+    """The device operations of one call of ``fn`` (warmed up), read from
+    a CUDA graph that captures the call: one name per graph node, a kernel
+    by its function's (mangled) name, through libcuda. A capture
+    records every operation the call puts on the stream, with no
+    profiler."""
+    import ctypes
+    cu = ctypes.CDLL('libcuda.so.1')
+
+    def ok(rc, what):
+        check(rc == 0, f'{what} returned CUresult {rc}')
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode='thread_local'):
+        fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), 'cuGraphGetNodes')
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           'cuGraphNodeGetType')
+        name = _GRAPH_NODE_TYPES.get(kind.value, f'node type {kind.value}')
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2 as pointer-sized words: func at
+            # 0, kern (a CUkernel) at 7.
+            params = (ctypes.c_void_p * 9)()
+            ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                params),
+               'cuGraphKernelNodeGetParams')
+            text = ctypes.c_char_p()
+            if params[0]:
+                ok(cu.cuFuncGetName(ctypes.byref(text),
+                                    ctypes.c_void_p(params[0])),
+                   'cuFuncGetName')
+            elif params[7]:
+                ok(cu.cuKernelGetName(ctypes.byref(text),
+                                      ctypes.c_void_p(params[7])),
+                   'cuKernelGetName')
+            name = text.value.decode() if text.value else name
+        names.append(name)
+    del g
+    return names
 
 
 def _time_words(ss, c2, w1, w2, G):
@@ -2778,10 +2842,8 @@ PIPE_ATOL = 1e-5
 # same way and the gradients and later losses reported: at 376x1408
 # float32 is the floor (gpu_vs_cpu_train's docstring), and Adam's first
 # step, about +-lr per weight, turns gradients at that floor into
-# different weights on the two runs. The float64 model's logits are
-# float32 too, so its losses drift the same way, ~3x per step: 0.03 of
-# their limit at step 3, 0.95 at step 6 (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md).
+# different weights on the two runs. The float64 runs keep their input
+# and logits in float64 too (_forward_in).
 TRAIN_MESH_STEPS = 6
 TRAIN_MESH_STEPS_FLOAT64 = 3
 # DP+TP training (train_tp_path): train_semseg.run at the runner's
@@ -2834,26 +2896,80 @@ def _load(tmp, name):
         return pickle.load(f)
 
 
+class _WorldWatch:
+    """While entered, on one rank: every mesh that parallel/mesh.make_mesh
+    builds, and the collectives parallel/mesh.py stages through host
+    memory (those its _staged finds on a gloo group)."""
+
+    def __enter__(self):
+        from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+        self.pmesh, self.meshes, self.staged = pmesh, [], 0
+        self.saved = pmesh.make_mesh, pmesh._staged
+        make, staged = self.saved
+
+        def watched_make(*args, **kwargs):
+            mesh = make(*args, **kwargs)
+            self.meshes.append(mesh)
+            return mesh
+
+        def watched_staged(group, x):
+            s = staged(group, x)
+            self.staged += s
+            return s
+
+        pmesh.make_mesh, pmesh._staged = watched_make, watched_staged
+        return self
+
+    def __exit__(self, *exc):
+        self.pmesh.make_mesh, self.pmesh._staged = self.saved
+
+    def report(self, dev):
+        """This rank's card, the backends of every axis group of the
+        meshes built, and the staged collectives' count."""
+        import torch.distributed as dist
+        backends = {}
+        for mesh in self.meshes:
+            for axis in mesh.mesh_dim_names:
+                backends.setdefault(axis, set()).add(
+                    dist.get_backend(mesh.get_group(axis)))
+        return dict(device=(torch.cuda.current_device()
+                            if dev.type == 'cuda' else None),
+                    backends={k: sorted(v) for k, v in backends.items()},
+                    staged_collectives=self.staged)
+
+
 def _mesh_world(rank, n, tmp, backend, plan, parts):
     """One rank of a mesh world: each of ``parts`` in turn, its results
-    saved as ``{backend}_r{rank}``. A rank's exception ends the spawn
-    with it, and chip_smoke with a non-zero code: the group is destroyed
-    only after success, because destroying it while peers wait in a
-    collective can block (NCCL), and the spawn ends the other ranks only
-    once this one has exited."""
+    saved as ``{backend}_r{rank}`` with the rank's _WorldWatch report
+    under 'world' and the bytes it had allocated on its card before each
+    part under 'allocated_before'. Over gloo every rank sits on card 0; over NCCL rank r
+    on card r. A rank's exception ends the spawn with it, and chip_smoke
+    with a non-zero code: the group is destroyed only after success,
+    because destroying it while peers wait in a collective can block
+    (NCCL), and the spawn ends the other ranks only once this one has
+    exited."""
     import datetime
 
     import torch.distributed as dist
     dev = torch.device(plan['dev'])
     if dev.type == 'cuda':
-        torch.cuda.set_device(0)
+        card = rank if backend == 'nccl' else 0
+        torch.cuda.set_device(card)
+        dev = torch.device('cuda', card)
     dist.init_process_group(
         backend, init_method='file://' + os.path.join(tmp, 'init_'
                                                       + backend),
         rank=rank, world_size=n,
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-    out = {p: globals()['_mesh_' + p](rank, n, tmp, plan, dev)
-           for p in parts}
+    out, held = {}, {}
+    with _WorldWatch() as watch:
+        for p in parts:
+            # What this rank still holds on its card from earlier parts.
+            held[p] = (torch.cuda.memory_allocated() if dev.type == 'cuda'
+                       else None)
+            out[p] = globals()['_mesh_' + p](rank, n, tmp, plan, dev)
+    out['world'] = watch.report(dev)
+    out['allocated_before'] = held
     _save(tmp, f'{backend}_r{rank}', out)
     dist.destroy_process_group()
 
@@ -2872,20 +2988,28 @@ class _Spans:
 
     def __init__(self, dev):
         self.dev, self.t, self.calls = dev, None, 0
-        self.total = {}
+        self.total, self.each = {}, []
 
     def mark(self, name):
         _sync(self.dev)
         now = time.perf_counter()
         if name == 'start':
             self.calls += 1
+            self.each.append({})
         else:
             self.total[name] = self.total.get(name, 0.0) + now - self.t
+            self.each[-1][name] = now - self.t
         self.t = now
 
     def ms_per_raster(self):
         return {k: v * 1e3 / max(self.calls, 1)
                 for k, v in self.total.items()}
+
+    def median_ms_per_raster(self):
+        """The median raster's ms by phase (the mean carries each new
+        group's first collective, which sets up its communicator)."""
+        return {k: statistics.median(e[k] for e in self.each if k in e) * 1e3
+                for k in self.total}
 
 
 def _capture_stripe(store):
@@ -2904,13 +3028,16 @@ def _capture_stripe(store):
 
 
 class _KeepFirstParams:
-    """An engine that keeps its first call's parameters in ``store``;
-    everything else is the engine's."""
+    """An engine that keeps its first call's parameters in ``store`` and
+    calls ``on_call`` (if given) before each call; everything else is the
+    engine's."""
 
-    def __init__(self, engine, store):
-        self.engine, self.store = engine, store
+    def __init__(self, engine, store, on_call=None):
+        self.engine, self.store, self.on_call = engine, store, on_call
 
     def __call__(self, points, valid, fids, inst_dyn, params, gen_future):
+        if self.on_call is not None:
+            self.on_call()
         if not self.store:
             self.store.append(params)
         return self.engine(points, valid, fids, inst_dyn, params,
@@ -2988,7 +3115,21 @@ def _mesh_runner(rank, n, tmp, plan, dev):
             engine = client.raster
             spans = _Spans(dev)
             engine.mark = spans.mark
-            client.raster = _KeepFirstParams(engine, first_params)
+            # frames: (start of its integrate, frames it evicted) per
+            # frame; sampled: the frame of each raster (one per sample).
+            frames, sampled = [], []
+            integrate = accum.integrate
+
+            def timed_integrate(observations):
+                t = time.perf_counter()
+                removed = integrate(observations)
+                frames.append((t, removed))
+                return removed
+
+            accum.integrate = timed_integrate
+            client.raster = _KeepFirstParams(
+                engine, first_params,
+                on_call=lambda: sampled.append(len(frames) - 1))
             scatter_s = _time_shard(client, dev, first)
             timer = PhaseTimer()
             try:
@@ -3002,7 +3143,20 @@ def _mesh_runner(rank, n, tmp, plan, dev):
             finally:
                 accum.sem_bev_generator.close()
                 sharded.shutdown_mesh_workers(mesh)
+                del accum.integrate
+            t_end = time.perf_counter()
+            # Steady state as runner_path takes it: from the first frame
+            # whose integrate evicts to the end of the loop.
+            full = next((i for i, (_, removed) in enumerate(frames)
+                         if removed), None)
+            if full is not None:
+                steady_n = sum(f >= full for f in sampled)
+                steady_s = t_end - frames[full][0]
+                out.update(first_evicting_frame=full,
+                           steady_samples=steady_n, steady_s=steady_s,
+                           samples_per_s_steady=steady_n / steady_s)
             out.update(stats, raster_ms=spans.ms_per_raster(),
+                       raster_median_ms=spans.median_ms_per_raster(),
                        rows_per_raster=accum.state.valid.numel(),
                        scatter_ms_per_sample=(
                            sum(scatter_s) * 1e3 / max(stats['bevs'], 1)),
@@ -3120,6 +3274,7 @@ def _mesh_step(rank, n, tmp, plan, dev):
             out.update(step_s=step_s, median_step_s=steady,
                        samples_per_s=plan['bev_num'] / steady,
                        raster_ms=spans.ms_per_raster(),
+                       raster_median_ms=spans.median_ms_per_raster(),
                        scatter_ms_per_step=statistics.median(scatter_s) * 1e3,
                        max_live_rows=accum.max_live_rows,
                        live_rows_per_rank_by_step=live,
@@ -3210,15 +3365,17 @@ class _AxisBytes:
     """While entered: the bytes of the results of parallel/mesh.py's
     psum, all_gather and broadcast over one mesh axis on this rank (a
     psum's or a broadcast's tensor, an all_gather's n slices), by
-    collective, and their calls."""
+    collective, and their calls; with ``timed``, also CUDA events on the
+    current stream around each call (take_ms)."""
 
     NAMES = ('psum', 'all_gather', 'broadcast')
 
-    def __init__(self, axis):
+    def __init__(self, axis, timed=False):
         from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
-        self.pmesh, self.axis = pmesh, axis
+        self.pmesh, self.axis, self.timed = pmesh, axis, timed
         self.bytes = dict.fromkeys(self.NAMES, 0)
         self.calls = dict.fromkeys(self.NAMES, 0)
+        self.events = {name: [] for name in self.NAMES}
         self.saved = {}
 
     def __enter__(self):
@@ -3233,20 +3390,55 @@ class _AxisBytes:
 
     def _counted(self, name, fn):
         def counted(x, mesh, axis, *args, **kwargs):
+            timed = self.timed and axis == self.axis
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
             out = fn(x, mesh, axis, *args, **kwargs)
             if axis == self.axis:
                 self.bytes[name] += out.numel() * out.element_size()
                 self.calls[name] += 1
+            if timed:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.events[name].append((start, end))
             return out
         return counted
 
     def snapshot(self):
         return dict(self.bytes), dict(self.calls)
 
+    def take_ms(self):
+        """Milliseconds by collective since the last take (synchronizes)."""
+        torch.cuda.synchronize()
+        ms = {name: sum(a.elapsed_time(b) for a, b in pairs)
+              for name, pairs in self.events.items()}
+        for pairs in self.events.values():
+            pairs.clear()
+        return ms
+
+
+def _forward_in(dtype):
+    """ResNet50DilatedFCN.forward with its input and logits in ``dtype``
+    where the model casts them to float32, as the JAX model does: a
+    float64 run then differs from another by float64 rounding only (with
+    float32 logits its losses drift apart through Adam, and at step 3
+    reached 1.08 of their limit on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    def forward(model, images):
+        x = (images.to(dtype) / 255.0 - model.mean) / model.std
+        ax = model.model_axis
+        logits = model.decode_head(model.backbone(x.permute(0, 3, 1, 2), ax),
+                                   ax).to(dtype)
+        logits = torch.nn.functional.interpolate(
+            logits, size=images.shape[1:3], mode='bilinear',
+            align_corners=False)
+        return logits.permute(0, 2, 3, 1)
+    return forward
+
 
 def _training_probe(make_setup, rec, dev, dtype, axis_bytes=None):
-    """A make_train_setup whose model, convolutions and optimizer are in
-    ``dtype`` and whose steps record their time and, after step 1, the
+    """A make_train_setup whose model, convolutions, logits and optimizer
+    are in ``dtype`` and whose steps record their time and, after step 1, the
     gradients and the batch-norm running statistics on the host (full
     tensors: a model cut over 'model' gathers them), the parameters on
     this rank and their bytes with their gradients and Adam moments; with
@@ -3266,6 +3458,9 @@ def _training_probe(make_setup, rec, dev, dtype, axis_bytes=None):
         for m in state.model.modules():
             if isinstance(m, _Conv):   # the classifier's float32 included
                 m.compute_dtype = dtype
+        if dtype != torch.float32:
+            state.model.forward = types.MethodType(_forward_in(dtype),
+                                                   state.model)
         state = state._replace(optimizer=type(state.optimizer)(
             state.model.parameters(), **state.optimizer.defaults))
 
@@ -3281,6 +3476,9 @@ def _training_probe(make_setup, rec, dev, dtype, axis_bytes=None):
                     {k: after[0][k] - before[0][k] for k in after[0]})
                 rec.setdefault('axis_calls', []).append(
                     {k: after[1][k] - before[1][k] for k in after[1]})
+                if axis_bytes.timed:
+                    rec.setdefault('axis_ms', []).append(
+                        axis_bytes.take_ms())
             if 'grads' not in rec:
                 model = state.model
                 params = list(model.parameters())
@@ -3381,7 +3579,8 @@ def _mesh_train_tp(rank, n, tmp, plan, dev):
     times."""
     t0 = time.perf_counter()
     recs = {}
-    with _AxisBytes('model') as axis_bytes:
+    timed = plan.get('axis_ms', False) and dev.type == 'cuda'
+    with _AxisBytes('model', timed) as axis_bytes:
         for name in plan['train_tp_dtypes'][str(n)]:
             recs[name] = _peak_train_run(
                 os.path.join(tmp, 'train', 'shard*.npz'), plan, dev,
@@ -3395,6 +3594,7 @@ def _mesh_train_tp(rank, n, tmp, plan, dev):
                        step_s=rec['step_s'], losses=rec['losses'],
                        axis_bytes=rec['axis_bytes'],
                        axis_calls=rec['axis_calls'],
+                       axis_ms=rec.get('axis_ms'),
                        max_memory_allocated_bytes=rec[
                            'max_memory_allocated_bytes'])
             for name, rec in recs.items()} | {
@@ -3610,9 +3810,10 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
     sparse step() through the tile engine's group (mesh_sparse), its
     samples' used bytes equal to sparse_step_path's first steps'
     (``sparse_rows``) byte for byte. Returns the runner's, step()'s and
-    the sparse step()'s kernel-1 launches per rank and the one-card
+    the sparse step()'s kernel-1 launches per rank, the one-card
     TRAIN_TP_BATCH runs (float64, float32) that phase_mesh_step4 holds
-    the (2, 2) layout to."""
+    the (2, 2) layout to, and the one-card runs at the plan's batch
+    (float64, float32) that phase_cards4 holds its layouts to."""
     plan = plan or _mesh_plan(dev)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3622,10 +3823,10 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
         _sync(dev)
         if dev.type == 'cuda':
             torch.cuda.empty_cache()
-        one = {str(dt): train_run(os.path.join(tmp, 'train', 'shard*.npz'),
-                                  plan, dev, os.path.join(tmp, 'ckpt_one'),
-                                  dt)
-               for dt in (torch.float64, torch.float32)}
+        one = {str(dt): _peak_train_run(
+            os.path.join(tmp, 'train', 'shard*.npz'), plan, dev,
+            os.path.join(tmp, 'ckpt_one'), dt)
+            for dt in (torch.float64, torch.float32)}
         one_tp = {str(dt): _peak_train_run(
             os.path.join(tmp, 'train', 'shard*.npz'), plan, dev,
             os.path.join(tmp, 'ckpt_one_tp'), dt,
@@ -3678,19 +3879,34 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
                        'raster_ms', 'scatter_ms_per_step', 'max_live_rows',
                        'route_peak_rows',
                        'route_cap', 'dest_cap_factor')}))
+    _emit_train_dp('train_mesh_path', t0, MESH_RANKS, plan, dp, one, ranks,
+                   'errors are ratios to their limit: <= 1 passes; held: '
+                   'every float64 error, the float32 step-1 loss and running '
+                   'statistics; TF32 off; two ranks share one card, so '
+                   'images/s is not a scale-out figure')
+    _emit_train_tp(t0, MESH_RANKS, plan, tp, one_tp, ranks)
+    emit('gpipe', t0, stages=MESH_RANKS, atol=PIPE_ATOL,
+         **{f'rank{r}': ranks[r]['gpipe'] for r in range(MESH_RANKS)})
+    sparse_launches = _emit_mesh_sparse(
+        'mesh_sparse', t0, MESH_RANKS, 'gloo (both ranks share one card)',
+        plan, ranks, mesh_rows, sparse_rows)
+    return launches, step_launches, sparse_launches, one_tp, one
+
+
+def _emit_train_dp(phase, t0, n, plan, dp, one, ranks, note, **extra):
+    """train_semseg.run data-parallel over n ranks against the one-card
+    run of the same batch: every float64 error, the float32 step-1 loss
+    and running statistics held by _train_held; times, images/s, peaks."""
     f64, f32 = str(torch.float64), str(torch.float32)
     held64 = _train_held(dp[f64], one[f64])
     held32 = _train_held(dp[f32], one[f32])
     median = statistics.median(dp[f32]['step_s'][1:])
-    emit('train_mesh_path', t0, ranks=MESH_RANKS, hw=list(
+    emit(phase, t0, ranks=n, hw=list(
         plan['stream']['img_hw']), global_batch=plan['train_batch'],
         steps=plan['train_steps'], float64=held64, float32=held32,
         losses={k: dict(mesh=dp[k]['losses'], one_card=one[k]['losses'])
                 for k in (f64, f32)},
-        note='errors are ratios to their limit: <= 1 passes; held: every '
-        'float64 error, the float32 step-1 loss and running statistics; '
-        'TF32 off; two ranks share one card, so images/s is not a '
-        'scale-out figure',
+        note=note,
         step_s=dp[f32]['step_s'], one_card_step_s=one[f32]['step_s'],
         float64_step_s=dp[f64]['step_s'],
         one_card_float64_step_s=one[f64]['step_s'],
@@ -3698,18 +3914,24 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
         one_card_images_per_s=(plan['train_batch']
                                / statistics.median(one[f32]['step_s'][1:])),
         peak_bytes_per_rank=[r['train'].get('max_memory_allocated_bytes')
-                             for r in ranks])
+                             for r in ranks], **extra)
     for name in ('step1_loss', 'losses', 'gradients', 'running_stats'):
         check(held64[name] <= 1.0, ('float64', name, held64[name]))
     for name in ('step1_loss', 'running_stats'):
         check(held32[name] <= 1.0, ('float32', name, held32[name]))
-    _emit_train_tp(t0, MESH_RANKS, plan, tp, one_tp, ranks)
-    emit('gpipe', t0, stages=MESH_RANKS, atol=PIPE_ATOL,
-         **{f'rank{r}': ranks[r]['gpipe'] for r in range(MESH_RANKS)})
+
+
+def _emit_mesh_sparse(phase, t0, n, backend, plan, ranks, mesh_rows,
+                      sparse_rows, **extra):
+    """The sparse step() through the tile engine's group on n ranks: the
+    plan's kernel-1 launches on every rank, each sample's used bytes equal
+    to sparse_step_path's first steps' (``sparse_rows``) byte for byte.
+    Returns the launches per rank."""
     sparse = ranks[0]['sparse']
     sparse_launches = [r['sparse']['launches'] for r in ranks]
     expect = plan['bev_num'] * plan['sparse_steps']
-    check(all(x == expect for x in sparse_launches),
+    check(all(x == expect * (plan['dev'] != 'cpu')
+              for x in sparse_launches),
           ('sparse launches', sparse_launches))
     check(len(mesh_rows) == plan['sparse_steps'], len(mesh_rows))
     for i, step_rows in enumerate(mesh_rows):
@@ -3718,24 +3940,26 @@ def phase_mesh(dev, main_bevs, runner_samples, sparse_rows, plan=None):
         for j, (a, b) in enumerate(zip(step_rows, sparse_rows[i])):
             check(a.tobytes() == b.tobytes(),
                   f'mesh sparse step {i} sample {j}: bytes differ')
-    emit('mesh_sparse', t0, ranks=MESH_RANKS, backend='gloo (both ranks '
-         'share one card)', steps=plan['sparse_steps'],
+    emit(phase, t0, ranks=n, backend=backend, steps=plan['sparse_steps'],
          launches_per_rank=sparse_launches,
          samples_byte_equal=expect,
          used_bytes_per_sample=float(np.mean(
              [r.size for step in mesh_rows for r in step])),
          world_seconds=sparse['seconds'],
          **{k: sparse[k] for k in ('group_ms', 'median_group_ms',
-                                   'rungs_used')})
-    return launches, step_launches, sparse_launches, one_tp
+                                   'rungs_used')}, **extra)
+    return sparse_launches
 
 
-def _emit_train_tp(t0, n, plan, tp, one, ranks):
-    """train_tp_path (n ranks, (1, 2) for 2) or train_tp4_path ((2, 2)):
-    the runner's default layout on every rank, TP_PARAMS_PER_RANK
-    parameters on a (., 2) rank, the float64 run held to the one-card
-    float64 run by _train_held (and the float32 step-1 loss and running
-    statistics, where it ran); bytes, times and peaks per rank."""
+def _emit_train_tp(t0, n, plan, tp, one, ranks, phase=None, note=None,
+                   **extra):
+    """train_tp_path (n ranks, (1, 2) for 2) or train_tp4_path ((2, 2)),
+    or ``phase`` with ``note``: the runner's default layout on every
+    rank, TP_PARAMS_PER_RANK parameters on a (., 2) rank, the float64
+    run held to the one-card float64 run by _train_held (and the float32
+    step-1 loss and running statistics, where it ran); bytes, times and
+    peaks per rank; where the model-axis collectives were timed, their
+    ms per step on each rank and rank 0's bytes over them."""
     got = [r['train_tp'] for r in ranks]
     layout = (n // 2, 2)
     out = {}
@@ -3746,6 +3970,20 @@ def _emit_train_tp(t0, n, plan, tp, one, ranks):
             check(g['params'] == TP_PARAMS_PER_RANK, (name, g['params']))
         held = _train_held(rec, one[name])
         axis = per_rank[0]['axis_bytes']
+        timed = {}
+        if per_rank[0]['axis_ms'] is not None:
+            ms = [[sum(step.values()) for step in g['axis_ms']]
+                  for g in per_rank]
+            timed = dict(
+                model_axis_ms_per_step=ms,
+                model_axis_gb_per_s_rank0=[
+                    sum(b.values()) / t / 1e6 for b, t in zip(axis, ms[0])],
+                images_per_s=[plan['train_tp_batch']
+                              / statistics.median(g['step_s'][1:])
+                              for g in per_rank],
+                one_card_images_per_s=(
+                    plan['train_tp_batch']
+                    / statistics.median(one[name]['step_s'][1:])))
         out[name.split('.')[-1]] = dict(
             held=held, losses=dict(tp=rec['losses'], one_card=one[name][
                 'losses']),
@@ -3760,20 +3998,23 @@ def _emit_train_tp(t0, n, plan, tp, one, ranks):
                                  for g in per_rank],
             one_card_peak_bytes=one[name]['max_memory_allocated_bytes'],
             model_axis_bytes_per_step=axis,
-            model_axis_calls_per_step=per_rank[0]['axis_calls'])
+            model_axis_calls_per_step=per_rank[0]['axis_calls'], **timed)
         for key in (('step1_loss', 'losses', 'gradients', 'running_stats')
                     if name == str(torch.float64)
                     else ('step1_loss', 'running_stats')):
             check(held[key] <= 1.0, (name, key, held[key]))
-    emit('train_tp_path' if n == MESH_RANKS else 'train_tp4_path', t0,
-         ranks=n, layout=list(layout), hw=list(plan['stream']['img_hw']),
+    emit(phase or ('train_tp_path' if n == MESH_RANKS else 'train_tp4_path'),
+         t0, ranks=n, layout=list(layout),
+         hw=list(plan['stream']['img_hw']),
          global_batch=plan['train_tp_batch'], steps=plan['train_steps'],
-         note='errors are ratios to their limit: <= 1 passes; held: every '
-         'float64 error, the float32 step-1 loss and running statistics; '
-         'TF32 off; the ranks share one card over gloo, every model-axis '
-         'collective staged through host memory; model_axis_bytes: the '
-         'results of each step\'s psums, all_gathers and broadcasts over '
-         "'model' on rank 0", **out)
+         note=note or (
+             'errors are ratios to their limit: <= 1 passes; held: every '
+             'float64 error, the float32 step-1 loss and running '
+             'statistics; TF32 off; the ranks share one card over gloo, '
+             'every model-axis collective staged through host memory; '
+             'model_axis_bytes: the results of each step\'s psums, '
+             "all_gathers and broadcasts over 'model' on rank 0"), **out,
+         **extra)
 
 
 def phase_mesh_step4(dev, main_bevs, one_tp, plan=None):
@@ -3837,16 +4078,285 @@ def phase_mesh_nccl(dev, plan=None):
     emit('mesh_nccl', t0, raster=r['nccl_raster'], train=r['nccl_train'])
 
 
+# --- four cards of their own (NCCL) ------------------------------------
+#
+# With four cards visible, the mesh paths run again on a world of four
+# ranks over NCCL, rank r on card r, at the one-card phases'
+# configurations, held to those phases' outputs; then the trainer's CLI
+# under torchrun. With fewer cards one line says so and nothing else
+# changes.
+CARDS4 = 4
+CARDS4_NOTE = ('errors are ratios to their limit: <= 1 passes; held: every '
+               'float64 error, the float32 step-1 loss and running '
+               'statistics; TF32 off; over NCCL, rank r on card r')
+TORCHRUN_STEPS = 3
+TORCHRUN_TIMEOUT_S = 600
+
+
+def _check_world(ranks, backend):
+    """Every rank's _WorldWatch report: each axis group of every mesh on
+    ``backend``, rank r on card r over NCCL, no collective staged through
+    host memory. Returns the reports, by rank."""
+    worlds = [r['world'] for r in ranks]
+    for rank, w in enumerate(worlds):
+        check(w['backends'] and all(b == [backend]
+                                    for b in w['backends'].values()),
+              (rank, w))
+        check(w['staged_collectives'] == 0, (rank, w))
+        if backend == 'nccl':
+            check(w['device'] == rank, (rank, w))
+    return dict(devices=[w['device'] for w in worlds],
+                backends=[w['backends'] for w in worlds],
+                staged_collectives=[w['staged_collectives'] for w in worlds])
+
+
+def phase_cards4(dev, main_res, main_bevs, runner, runner_samples,
+                 sparse_rows, one, plan=None):
+    """The mesh on four ranks, one card each, over NCCL (gloo on the CPU,
+    for a rehearsal): in one world, the KITTI-360 runner at run()'s
+    defaults (``runner_samples`` equal file for file, kernel 1 exact on
+    every rank's stripe), main_path's step() (``main_bevs`` equal), the
+    sparse group (``sparse_rows`` byte-equal), train_semseg.run on (4, 1)
+    and on (2, 2) at run()'s global batch held to the one-card runs
+    ``one`` as _train_held holds them, GPipe at PIPE_ATOL; every group on
+    every rank checked by _check_world. Then the trainer's CLI under
+    torchrun (phase_torchrun_train). (dryrun_multichip(4) already ran
+    over NCCL on cards 0-3: phase_dryrun.) Prints one skip
+    line and returns None with fewer than four cards visible; else the
+    kernel-1 launches per rank of the runner, step() and the sparse
+    group."""
+    visible = torch.cuda.device_count() if dev.type == 'cuda' else CARDS4
+    if visible < CARDS4:
+        print(json.dumps({'phase': 'cards4', 'skipped': True,
+                          'visible': visible}), flush=True)
+        return None
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    f64, f32 = str(torch.float64), str(torch.float32)
+    plan = plan or _mesh_plan(dev)
+    plan = dict(plan, train_tp_batch=plan['train_batch'],
+                train_tp_dtypes={str(CARDS4): [f64, f32]}, axis_ms=True)
+    t0 = time.perf_counter()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, 'train'))
+        _train_shard(os.path.join(tmp, 'train', 'shard0.npz'),
+                     plan['stream']['img_hw'])
+        ranks = _spawn_world(CARDS4, backend, tmp, plan,
+                             ('runner', 'step', 'sparse', 'train', 'train_tp',
+                              'gpipe'))
+        mesh_samples = _read_samples(os.path.join(tmp, 'mesh_runner'))
+        step_bevs = _load(tmp, 'mesh_step_bevs')
+        mesh_rows = _load(tmp, 'mesh_sparse_rows')
+        dp = _load(tmp, 'mesh_train')
+        tp = _load(tmp, f'mesh_train_tp{CARDS4}')
+    world = _check_world(ranks, backend)
+    where = f'{backend}, rank r on card r'
+    mesh = ranks[0]['runner']
+    n = mesh['bevs']
+    check(n == len(runner_samples) and n > 0, (n, len(runner_samples)))
+    # One kernel-1 launch per raster on each rank (the plain version on
+    # the CPU).
+    on_card = dev.type == 'cuda'
+    launches = [r['runner']['launches'] for r in ranks]
+    check(all(x == n * on_card for x in launches),
+          ('runner launches', launches, n))
+    runner_err = _exact_and_close(mesh_samples, runner_samples)
+    check(runner_err == 0.0, ('runner', runner_err))
+    stripes = [r['runner'].get('stripe_kernel') for r in ranks]
+    if dev.type == 'cuda':
+        check(all(k['max_abs_err'] == 0.0 for k in stripes), stripes)
+    emit('mesh_runner_cards4', t0, ranks=CARDS4, backend=where, world=world,
+         samples=n, launches_per_rank=launches,
+         vs_runner_path_max_abs=runner_err, stripe_kernel_per_rank=stripes,
+         psum_vs_one_device_max_abs=mesh['psum_vs_one_device_max_abs'],
+         samples_per_s_steady=mesh.get('samples_per_s_steady'),
+         one_card_samples_per_s_steady=runner['samples_per_s_steady'],
+         steady_vs_one_card=(mesh['samples_per_s_steady']
+                             / runner['samples_per_s_steady']
+                             if 'samples_per_s_steady' in mesh else None),
+         peak_bytes_per_rank=[r['runner'].get('max_memory_allocated_bytes')
+                              for r in ranks],
+         one_card_peak_bytes=runner['max_memory_allocated_bytes'],
+         **{k: mesh.get(k) for k in (
+             'steady_samples', 'steady_s', 'first_evicting_frame',
+             'raster_ms', 'raster_median_ms', 'scatter_ms_per_sample',
+             'generate_bev_ms_per_sample', 'integrate_ms_per_frame',
+             'rows_per_raster', 'route_peak_rows', 'route_cap',
+             'dest_cap_factor', 'loop_s')})
+    step = ranks[0]['step']
+    step_launches = [r['step']['launches'] for r in ranks]
+    expect = plan['bev_num'] * plan['steps'] * on_card
+    check(all(x == expect for x in step_launches),
+          ('step launches', step_launches))
+    flat = [{str(i): b for i, b in enumerate(s for st in run for s in st)}
+            for run in (step_bevs, main_bevs)]
+    step_err = _exact_and_close(*flat)
+    check(step_err == 0.0, ('step', step_err))
+    emit('mesh_step_cards4', t0, ranks=CARDS4, backend=where, world=world,
+         launches_per_rank=step_launches, vs_main_path_max_abs=step_err,
+         one_card_samples_per_s=main_res['samples_per_s'],
+         samples_per_s_vs_one_card=(step['samples_per_s']
+                                    / main_res['samples_per_s']),
+         peak_bytes_per_rank=[r['step'].get('max_memory_allocated_bytes')
+                              for r in ranks],
+         **{k: step[k] for k in (
+             'step_s', 'median_step_s', 'samples_per_s', 'raster_ms',
+             'raster_median_ms', 'scatter_ms_per_step', 'max_live_rows',
+             'live_rows_per_rank_by_step', 'route_peak_rows', 'route_cap',
+             'dest_cap_factor')})
+    sparse_launches = _emit_mesh_sparse(
+        'mesh_sparse_cards4', t0, CARDS4, where, plan, ranks, mesh_rows,
+        sparse_rows, world=world)
+    held = {p: [r['allocated_before'][p] for r in ranks]
+            for p in ('train', 'train_tp')}
+    _emit_train_dp('train_dp_cards4', t0, CARDS4, plan, dp, one, ranks,
+                   CARDS4_NOTE, layout=[CARDS4, 1], world=world,
+                   allocated_before_bytes_per_rank=held['train'])
+    _emit_train_tp(t0, CARDS4, plan, tp, one, ranks, phase='train_tp_cards4',
+                   note=CARDS4_NOTE + '; model_axis_bytes: the results of '
+                   "each step's psums, all_gathers and broadcasts over "
+                   "'model' on rank 0; model_axis_ms: CUDA events around "
+                   'each of them on each rank', world=world,
+                   allocated_before_bytes_per_rank=held['train_tp'])
+    emit('gpipe_cards4', t0, stages=CARDS4, atol=PIPE_ATOL, world=world,
+         **{f'rank{r}': ranks[r]['gpipe'] for r in range(CARDS4)})
+    phase_torchrun_train(dev, one[f32]['losses'][0], plan)
+    return launches, step_launches, sparse_launches
+
+
+def record_train_losses(out_dir, device_type):
+    """In a process that torchrun started for the train_semseg CLI (called
+    from the sitecustomize.py that phase_torchrun_train puts on its
+    path): the model trains in float32 with TF32 off, as train_run's
+    float32 runs do (_training_probe), and every step's global loss is
+    written to out_dir/losses_r{RANK}.json. Everything else is the
+    CLI's."""
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    rank = os.environ['RANK']
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device('cuda', int(os.environ['LOCAL_RANK']))
+           if device_type == 'cuda' else torch.device(device_type))
+    make = _training_probe(train_mod.make_train_setup, {}, dev,
+                           torch.float32)
+
+    def setup(*args, **kwargs):
+        state, train_step = make(*args, **kwargs)
+        losses = []
+
+        def recorded(state, images, labels):
+            state, loss = train_step(state, images, labels)
+            losses.append(float(loss))
+            with open(os.path.join(out_dir, f'losses_r{rank}.json'),
+                      'w') as f:
+                json.dump(losses, f)
+            return state, loss
+        return state, recorded
+
+    train_mod.make_train_setup = setup
+
+
+# The sitecustomize.py of phase_torchrun_train's workers: first the
+# interpreter's own sitecustomize, which this one shadows, if it has one;
+# then, in a process torchrun started, record_train_losses.
+_LOSS_HOOK = """import importlib.machinery
+import importlib.util
+import os
+import sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    'sitecustomize',
+    [p for p in sys.path if os.path.abspath(p or '.') != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+if 'LOCAL_RANK' in os.environ:
+    import chip_smoke
+    chip_smoke.record_train_losses(OUT_DIR, DEVICE_TYPE)
+"""
+
+
+def phase_torchrun_train(dev, one_loss1, plan):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4
+    -m pc_accumulation_lib_tpu_torch.runners.train_semseg`` on
+    train_path's shard, TORCHRUN_STEPS steps, a checkpoint at the last:
+    one process per card, the JAX runner's default (2, 2) layout, run()'s
+    defaults otherwise, but float32 with TF32 off (record_train_losses),
+    so that its step-1 loss can be held to the one-card float32 run's
+    (``one_loss1``, the same batch and weights) at _train_held's float32
+    step-1 bound (bf16 convolutions on two layouts differ by about that
+    bound). It must exit 0; every rank's losses agree, and its checkpoint
+    restores on one card."""
+    from pc_accumulation_lib_tpu_torch.models import checkpoint as ckpt
+    from pc_accumulation_lib_tpu_torch.models import train as train_mod
+    t0 = time.perf_counter()
+    hw = plan['stream']['img_hw']
+    with tempfile.TemporaryDirectory() as tmp:
+        _train_shard(os.path.join(tmp, 'shard0.npz'), hw)
+        hook = os.path.join(tmp, 'hook')
+        os.makedirs(hook)
+        with open(os.path.join(hook, 'sitecustomize.py'), 'w') as f:
+            f.write(_LOSS_HOOK.replace('OUT_DIR', repr(tmp)).replace(
+                'DEVICE_TYPE', repr(dev.type)))
+        ckpt_dir = os.path.join(tmp, 'ckpt')
+        env = {k: v for k, v in os.environ.items()
+               if k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK',
+                            'MASTER_ADDR', 'MASTER_PORT')}
+        env['PYTHONPATH'] = os.pathsep.join(
+            [hook, HERE] + [p for p in [os.environ.get('PYTHONPATH')] if p])
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc-per-node', str(CARDS4), '-m',
+               'pc_accumulation_lib_tpu_torch.runners.train_semseg',
+               os.path.join(tmp, 'shard*.npz'), '--steps',
+               str(TORCHRUN_STEPS), '--ckpt_every', str(TORCHRUN_STEPS),
+               '--ckpt_dir', ckpt_dir, '--device', dev.type]
+        ts = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=TORCHRUN_TIMEOUT_S)
+        run_s = time.perf_counter() - ts
+        check(proc.returncode == 0, (proc.returncode, proc.stderr[-3000:]))
+        losses = []
+        for r in range(CARDS4):
+            with open(os.path.join(tmp, f'losses_r{r}.json')) as f:
+                losses.append(json.load(f))
+        check(all(x == losses[0] for x in losses)
+              and len(losses[0]) == TORCHRUN_STEPS
+              and np.isfinite(losses[0]).all(), losses)
+        check(sorted(os.listdir(ckpt_dir)) == [str(TORCHRUN_STEPS)],
+              os.listdir(ckpt_dir))
+        fresh, _ = train_mod.make_train_setup(img_hw=hw, device=dev)
+        restored = ckpt.restore_train_state(ckpt_dir, fresh)
+        check(restored.step == TORCHRUN_STEPS, restored.step)
+        tensors = list(restored.model.state_dict().values())
+        check(all(bool(torch.isfinite(t).all()) for t in tensors
+                  if t.is_floating_point()), 'restored weights not finite')
+        del fresh, restored, tensors
+        command = ' '.join(['python'] + cmd[1:]).replace(tmp, '<tmp>')
+    step1 = _rel_err(losses[0][0], one_loss1, 1e-5, 0.0)
+    emit('torchrun_train_cards4', t0, nproc_per_node=CARDS4, command=command,
+         exit_code=proc.returncode, run_s=run_s, losses=losses[0],
+         one_card_step1_loss=one_loss1, step1_loss_vs_one_card=step1,
+         note='step1_loss_vs_one_card: a ratio to rtol 1e-5, <= 1 passes; '
+         "run()'s batch of 8, float32 convolutions and TF32 off on both; "
+         'layout (2, 2); the checkpoint restored on one card')
+    check(step1 <= 1.0, ('torchrun step-1 loss', losses[0][0], one_loss1))
+
+
 def phase_dryrun(dev, n):
-    """parallel/dryrun.py on n ranks of this card: step 1 trains DP+TP
-    with the JAX dryrun's tp (the largest power of two dividing n, at
-    most 4), which the summary reports."""
+    """parallel/dryrun.py on n ranks: step 1 trains DP+TP with the JAX
+    dryrun's tp (the largest power of two dividing n, at most 4), which
+    the summary reports. With n cards visible each rank has its own over
+    NCCL (dryrun_multichip's rule), which the placement must show
+    (rank r on card r); else the ranks share this card over gloo."""
     from pc_accumulation_lib_tpu_torch.parallel.dryrun import (
         dryrun_multichip)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         summary = dryrun_multichip(n, device=dev.type)
     check(summary['tp'] == min(4, n & -n), summary)
+    if n <= torch.cuda.device_count():
+        want = [dict(backend='nccl', device=r) for r in range(n)]
+        check(summary['placement'] == want, (summary['placement'], want))
     emit('dryrun_multichip', t0, ranks=n, **summary)
 
 
@@ -3919,14 +4429,16 @@ def main():
         phase_train_path(dev, tmp)
         phase_pc_accum(dev, tmp)
     phase_gpu_vs_cpu_train(dev)
-    mesh_runner, mesh_step, mesh_sparse, one_tp = phase_mesh(
+    mesh_runner, mesh_step, mesh_sparse, one_tp, one = phase_mesh(
         dev, main_bevs, samples, sparse_rows)
-    del sparse_rows
     mesh_step4 = phase_mesh_step4(dev, main_bevs, one_tp)
-    del main_bevs, samples, one_tp
+    del one_tp
     phase_dryrun(dev, MESH_RANKS)
     phase_dryrun(dev, MESH4_RANKS)
     phase_mesh_nccl(dev)
+    cards4 = phase_cards4(dev, main_res, main_bevs, runner, samples,
+                          sparse_rows, one)
+    del main_bevs, samples, sparse_rows, one
     # Each kernel's timing at five shapes: made-up bench raster rows, a
     # step() raster's rows (dense cell keys, and rank-compacted keys on the
     # sparse path), a KITTI-360 runner raster's rows, an oracle raster's
@@ -3969,7 +4481,10 @@ def main():
                        'step_mesh4': mesh_step4,
                        'step_sparse': sparse['launches'],
                        'nuscenes_oracle_sparse': oracle_sparse['launches'],
-                       'step_sparse_mesh2': mesh_sparse}),
+                       'step_sparse_mesh2': mesh_sparse,
+                       **(dict(zip(('kitti360_runner_cards4', 'step_cards4',
+                                    'step_sparse_cards4'), cards4))
+                          if cards4 else {})}),
         _kernel_entry('segmented_stats', KERNEL2_REPLACES,
                       runner2['kernel2_launches'],
                       max(kern2['max_abs_err'],

@@ -35,7 +35,8 @@ SEM_IDXS = {'road': 0, 'car': 13, 'truck': 14, 'bus': 15, 'motorcycle': 17}
 def dryrun_multichip(n_ranks: int, device: str = 'cuda') -> dict:
     """Spawn ``n_ranks`` processes (NCCL when each gets a card of its
     own, gloo otherwise) and run the six paths; a rank's failure raises
-    here. Returns rank 0's summary."""
+    here. Returns rank 0's summary, with each rank's backend and card
+    under 'placement'."""
     import torch.multiprocessing as mp
     backend = ('nccl' if device == 'cuda'
                and n_ranks <= torch.cuda.device_count() else 'gloo')
@@ -61,6 +62,12 @@ def _rank_main(rank, n, backend, device, tmp):
     pmesh.initialize_multihost('file://' + os.path.join(tmp, 'init'), n,
                                rank, backend=backend)
     summary = _paths(rank, n, device, tmp)
+    # Where each rank ran: its group's backend and its card.
+    placement = [None] * n
+    dist.all_gather_object(placement, dict(
+        backend=dist.get_backend(),
+        device=torch.cuda.current_device() if device == 'cuda' else None))
+    summary['placement'] = placement
     if rank == 0:
         with open(os.path.join(tmp, 'summary.json'), 'w') as f:
             json.dump(summary, f)

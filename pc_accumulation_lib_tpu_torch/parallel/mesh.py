@@ -19,6 +19,7 @@ they are.
 from __future__ import annotations
 
 import datetime
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -28,6 +29,9 @@ import torch.distributed as dist
 # that dies or hangs fails its peers' next collective instead of blocking
 # them for torch's default of 30 minutes.
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
+# What torchrun (python -m torch.distributed.run) sets in each process it
+# starts, besides LOCAL_RANK.
+_TORCHRUN_VARS = ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT')
 
 
 def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
@@ -60,18 +64,39 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          ) -> None:
     """Join the default process group: ``coordinator_address`` is
     'host:port' (taken as tcp://host:port) or an init-method URL
-    ('tcp://...', 'file://...'). A no-op when it is None (one process, no
-    mesh). The backend is NCCL when the card is there and gloo otherwise,
-    unless the caller names one; with NCCL each process takes card
-    ``process_id % device_count``."""
+    ('tcp://...', 'file://...'), with ``num_processes`` and
+    ``process_id`` (ValueError naming the one that is missing). With
+    'env://', or with None while torchrun's RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT are set, the group is joined from those
+    variables (jax.distributed.initialize takes its launcher's the same
+    way); otherwise None is a no-op (one process, no mesh). The backend
+    is NCCL when the card is there and gloo otherwise, unless the caller
+    names one; with NCCL each process takes card LOCAL_RANK when that is
+    set, else ``process_id % device_count``."""
+    if coordinator_address is None and all(
+            k in os.environ for k in _TORCHRUN_VARS):
+        coordinator_address = 'env://'
     if coordinator_address is None:
         return
+    if coordinator_address == 'env://':
+        env = os.environ
+        if num_processes is None and 'WORLD_SIZE' in env:
+            num_processes = int(env['WORLD_SIZE'])
+        if process_id is None and 'RANK' in env:
+            process_id = int(env['RANK'])
+    for name, value in (('num_processes', num_processes),
+                        ('process_id', process_id)):
+        if value is None:
+            raise ValueError(f'initialize_multihost: {coordinator_address!r}'
+                             f' needs {name}')
     if backend is None:
         backend = 'nccl' if torch.cuda.is_available() else 'gloo'
     url = (coordinator_address if '://' in coordinator_address
            else f'tcp://{coordinator_address}')
     if backend == 'nccl':
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        local = os.environ.get('LOCAL_RANK')
+        torch.cuda.set_device(int(local) if local is not None
+                              else process_id % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=url,
                             world_size=num_processes, rank=process_id,
                             timeout=timeout)

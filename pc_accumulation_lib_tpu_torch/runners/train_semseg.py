@@ -16,6 +16,11 @@ KITTI-360 3D semantic GT into the camera.
 CLI: python -m pc_accumulation_lib_tpu_torch.runners.train_semseg
 '<data_glob>' [--steps N] [--device cuda] [--dp N]
 [--coordinator_address host:port --num_processes N --process_id I].
+On every card of a host, one process per card, as the JAX runner takes
+every chip of its host:
+python -m torch.distributed.run --standalone --nproc-per-node N
+-m pc_accumulation_lib_tpu_torch.runners.train_semseg '<data_glob>'
+(the process group is joined from torchrun's variables).
 """
 from __future__ import annotations
 
@@ -114,12 +119,22 @@ def main(argv=None):
     parser.add_argument('--num_processes', type=int, default=None)
     parser.add_argument('--process_id', type=int, default=None)
     args = parser.parse_args(argv)
+    import torch.distributed as dist
+
     from pc_accumulation_lib_tpu_torch.parallel.mesh import (
         initialize_multihost)
+    # A group of CPU tensors is gloo's, even where a card is visible.
     initialize_multihost(args.coordinator_address, args.num_processes,
-                         args.process_id)
+                         args.process_id,
+                         backend=('gloo' if torch.device(args.device).type
+                                  == 'cpu' else None))
     run(args.data_glob, args.steps, args.batch_size, args.lr,
         args.ckpt_dir, args.ckpt_every, args.dp, device=args.device)
+    # Only after success: a rank that raises exits at once and its
+    # launcher ends the others (destroying an NCCL group while peers wait
+    # in a collective can block).
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -807,3 +807,84 @@ def train_tp_cases(rank, n, tmp, named_path, data_glob):
             shutil.rmtree(path)
         os.remove(weights)
     save(tmp, f'tp{n}_r{rank}', out)
+
+
+# --- tests/test_torch_launch.py -----------------------------------------
+
+def env_join_cases(rank, n, tmp, port):
+    """Rank ``rank`` of a world started without a group: torchrun's
+    variables set (LOCAL_RANK counted down, so that it differs from
+    RANK), then initialize_multihost() with no arguments and an NCCL
+    backend asked for, the card choice recorded and the group itself
+    joined over gloo (this host has no NCCL)."""
+    from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
+                      LOCAL_RANK=str(n - 1 - rank),
+                      MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+    cards = []
+    torch.cuda.set_device = cards.append
+    torch.cuda.device_count = lambda: n
+    join = dist.init_process_group
+    joined = {}
+
+    def over_gloo(backend, **kwargs):
+        joined.update(kwargs, backend=backend)
+        join('gloo', **kwargs)
+
+    dist.init_process_group = over_gloo
+    pmesh.initialize_multihost(backend='nccl')
+    out = dict(cards=cards, asked=joined['backend'],
+               init_method=joined['init_method'], rank=dist.get_rank(),
+               world=dist.get_world_size(),
+               backend=dist.get_backend())
+    box = [None] * n
+    dist.all_gather_object(box, rank)
+    out['gathered'] = box
+    save(tmp, f'env_r{rank}', out)
+    dist.destroy_process_group()
+
+
+def fault_cases(rank, n, tmp):
+    """Rank 1 raises before the world's first collective; the others wait
+    in it."""
+    if rank == 1:
+        raise RuntimeError('fault_cases: rank 1 fails')
+    dist.all_reduce(torch.ones(1))
+
+
+def hook_train_cli(out_dir, named_path=None, fail_rank=None):
+    """In a process that torchrun started for the train_semseg CLI (called
+    from a sitecustomize.py the test writes): the model starts from
+    ``named_path``'s tensors (load_named_tensors) instead of its seed,
+    every step's global loss is written to out_dir/losses_r{RANK}.json,
+    and rank ``fail_rank`` raises at its first step."""
+    import json
+
+    from pc_accumulation_lib_tpu_torch.models import train as ttrain
+    from pc_accumulation_lib_tpu_torch.models.semseg import (
+        load_named_tensors)
+    rank = int(os.environ['RANK'])
+    make = ttrain.make_train_setup
+    if named_path is not None:
+        def carried(model, generator):
+            with np.load(named_path) as d:
+                load_named_tensors(model, dict(d))
+        ttrain.init_params = carried
+
+    def setup(*args, **kwargs):
+        state, step = make(*args, **kwargs)
+        losses = []
+
+        def recorded(state, images, labels):
+            if rank == fail_rank:
+                raise RuntimeError(f'hook_train_cli: rank {rank} fails')
+            state, loss = step(state, images, labels)
+            losses.append(float(loss))
+            with open(os.path.join(out_dir, f'losses_r{rank}.json'),
+                      'w') as f:
+                json.dump(losses, f)
+            return state, loss
+        return state, recorded
+
+    ttrain.make_train_setup = setup
