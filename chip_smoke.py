@@ -1026,6 +1026,7 @@ def phase_sparse_step_path(dev, main_res):
     from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
     from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
     from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    from pc_accumulation_lib_tpu_torch.utils import profiling
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     P = SPARSE_BEV['pixel_size']
@@ -1073,10 +1074,6 @@ def phase_sparse_step_path(dev, main_res):
             stats_in[:] = [args, kwargs]
         return split_stats(*args, **kwargs)
 
-    def drain(handle):
-        bevs = handle()
-        return bevs, dict(gen.last_harvest)
-
     shorts0 = gen.sparse_short_fetches
     overflows0 = gen.sparse_overflows
     torch.cuda.synchronize()
@@ -1084,10 +1081,11 @@ def phase_sparse_step_path(dev, main_res):
     ss.segmented_stats_words.launches = 0
     native_decode.decode_sparse_warp.decoded = 0
     steps, iter_s = [], []
+    profiling.reset()
     ts = time.perf_counter()
     try:
         with ThreadPoolExecutor(max_workers=1) as ex, \
-                contextlib.redirect_stdout(log):
+                contextlib.redirect_stdout(log), profiling.enable():
             fut = None
             for i, f in enumerate(frames[2:]):
                 ti = time.perf_counter()
@@ -1099,7 +1097,7 @@ def phase_sparse_step_path(dev, main_res):
                                         gen_future=True, async_fetch=True)
                 finally:
                     sort_raster.split_stats_from_words_flat = split_stats
-                nxt = ex.submit(drain, handle)
+                nxt = ex.submit(handle)
                 if fut is not None:
                     steps.append(fut.result())
                 fut = nxt
@@ -1116,7 +1114,7 @@ def phase_sparse_step_path(dev, main_res):
     check(launches == n, f'{launches} kernel-1 launches in {N_STEPS} steps')
     check(decoded == n, f'the native decoder decoded {decoded} of {n}')
     check(gen.sparse_overflows == overflows0, 'a sample overflowed its cap')
-    occ = [_check_bevs(bevs, P) for bevs, _ in steps]
+    occ = [_check_bevs(bevs, P) for bevs in steps]
     check(min(occ) > 0, occ)
     # The held samples against the dense float16 raster on the same
     # inputs (no compaction, no sparse pack).
@@ -1129,7 +1127,7 @@ def phase_sparse_step_path(dev, main_res):
         for r in range(aug9s.shape[0]):
             dense = dense_fn(ref, valid, fids, pk, pk2, (pose_vec, aug9s[r]),
                              gf).cpu().numpy()
-            _codes_equal(_bev_stack(steps[i - 1][0][r]), dense,
+            _codes_equal(_bev_stack(steps[i - 1][r]), dense,
                          f'step {i} sample {r}')
     check(len(held) == len(SPARSE_HELD_STEPS)
           and min(held_rungs.values()) < ACCUM['compact_cap'], held_rungs)
@@ -1148,15 +1146,15 @@ def phase_sparse_step_path(dev, main_res):
         sparse_cap=OVERFLOW_CAP, device=dev)
     fell_back = gen128._fetch_stack(over, True, _warp_of(aug9s[0]))
     check(gen128.sparse_overflows == 1, gen128.sparse_overflows)
-    _codes_equal(fell_back, _bev_stack(steps[N_STEPS - 1][0][0]),
+    _codes_equal(fell_back, _bev_stack(steps[N_STEPS - 1][0]),
                  'overflow fallback')
     # Host decode + warp of one sample alone (the native decoder).
     raw = _used_rows(groups[N_STEPS][0][0], P)[0]
     w0 = _warp_of(aug9s[0])
     decode_ms = _median_ms_host(lambda: native_decode.decode_sparse_warp(
         raw, True, P, gen.sparse_cap, gen._sparse_empty, w0))
-    harvests = [h for _, h in steps]
-    wire = sum(h['wire_bytes'] for h in harvests)
+    traced = profiling.snapshot()
+    wire = traced['counters'].get('fetch.bytes', 0)
     fallback_bytes = core.sparse_buffer_bytes(P, True, gen.sparse_cap,
                                               True)[1]
     steady = statistics.median(iter_s[1:])
@@ -1180,9 +1178,11 @@ def phase_sparse_step_path(dev, main_res):
         wire_bytes_per_sample=wire / n,
         fallback_bytes_per_sample=fallback_bytes,
         float16_bytes_per_sample=21 * P * P * 2,
-        resolved_by=[h['resolved_by'] for h in harvests],
-        harvest_work_ms_per_sample=1e3 * sum(h['work_s'] for h in harvests)
-        / n, native_decode_warp_ms_per_sample=decode_ms,
+        resolved_by={k.rsplit('.', 1)[1]: v
+                     for k, v in traced['counters'].items()
+                     if k.startswith('fetch.resolved_by.')},
+        harvest_work_ms_per_sample=traced['spans']['harvest.decode'][
+            'total_ms'] / n, native_decode_warp_ms_per_sample=decode_ms,
         max_memory_allocated_bytes=peak, occupied_cell_fraction=occ,
         overflow_fallback=dict(cap=OVERFLOW_CAP,
                                sparse_overflows=gen128.sparse_overflows))
@@ -1987,6 +1987,7 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
     from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
     from pc_accumulation_lib_tpu_torch.ops import sort_raster
+    from pc_accumulation_lib_tpu_torch.utils import profiling
     t0 = time.perf_counter()
     stream = SyntheticNuScenesStream(n_frames=ORACLE_FRAMES, **ORACLE_STREAM)
     frames = [stream.frame(i) for i in range(ORACLE_FRAMES)]
@@ -2032,12 +2033,13 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
         gen._raster = capture_raster
         native_decode.decode_sparse_warp.decoded = 0
     ex = ThreadPoolExecutor(max_workers=1) if sparse else None
-    wire = []
+    profiling.reset()
 
     def drained(handle):
-        out = handle()      # in the worker: its finalizes run one by one
-        wire.append(gen.last_harvest['wire_bytes'])
-        return out
+        # In the worker: its finalizes run one by one, each counting its
+        # wire bytes ('fetch.bytes').
+        with profiling.enable():
+            return handle()
 
     def timed_loop(accum, overlap=False):
         """The timed frames on ``accum``; with ``overlap`` each frame's
@@ -2136,7 +2138,8 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
             max_occupied_split=gen.max_occupied_split,
             sparse_short_fetches=gen.sparse_short_fetches,
             sparse_overflows=gen.sparse_overflows,
-            wire_bytes_per_sample=sum(wire) / len(wire),
+            wire_bytes_per_sample=profiling.snapshot()['counters'][
+                'fetch.bytes'] / len(samples),
             float16_bytes_per_sample=21 * P * P * 2)
         if reference is not None:
             tracking['oracle_path_samples_per_s_median'] = reference[
@@ -2982,34 +2985,33 @@ def _spawn_world(n, backend, tmp, plan, parts):
 
 
 class _Spans:
-    """Wall time of each phase of the tile rasters of rank 0 (the engine's
-    ``mark`` hook), with a synchronize at each boundary, so device work
-    and the host's gloo staging both count."""
+    """Stream time of each phase of the tile rasters of rank 0: the
+    engine's 'raster.<phase>' device spans (parallel/sharded.py), traced
+    from construction to ``close()``."""
+    PHASES = ('route', 'all_to_all', 'stripe_stats', 'gather', 'finalize')
 
-    def __init__(self, dev):
-        self.dev, self.t, self.calls = dev, None, 0
-        self.total, self.each = {}, []
+    def __init__(self):
+        from pc_accumulation_lib_tpu_torch.utils import profiling
+        self.profiling = profiling
+        profiling.reset()
+        self._on = profiling.enable()
 
-    def mark(self, name):
-        _sync(self.dev)
-        now = time.perf_counter()
-        if name == 'start':
-            self.calls += 1
-            self.each.append({})
-        else:
-            self.total[name] = self.total.get(name, 0.0) + now - self.t
-            self.each[-1][name] = now - self.t
-        self.t = now
+    def close(self):
+        self._on.close()
 
     def ms_per_raster(self):
-        return {k: v * 1e3 / max(self.calls, 1)
-                for k, v in self.total.items()}
+        spans = self.profiling.snapshot()['spans']
+        calls = max(spans.get('raster.route', {}).get('n', 0), 1)
+        return {p: spans['raster.' + p]['device_ms'] / calls
+                for p in self.PHASES if 'raster.' + p in spans}
 
     def median_ms_per_raster(self):
         """The median raster's ms by phase (the mean carries each new
         group's first collective, which sets up its communicator)."""
-        return {k: statistics.median(e[k] for e in self.each if k in e) * 1e3
-                for k in self.total}
+        recs = self.profiling.records()
+        each = {p: [r['device_ms'] for r in recs if r['name'] == 'raster.' + p]
+                for p in self.PHASES}
+        return {p: statistics.median(v) for p, v in each.items() if v}
 
 
 def _capture_stripe(store):
@@ -3113,8 +3115,7 @@ def _mesh_runner(rank, n, tmp, plan, dev):
                                   use_gt_sem=False, **plan['runner_accum'])
             client = accum.sem_bev_generator.mesh_raster
             engine = client.raster
-            spans = _Spans(dev)
-            engine.mark = spans.mark
+            spans = _Spans()
             # frames: (start of its integrate, frames it evicted) per
             # frame; sampled: the frame of each raster (one per sample).
             frames, sampled = [], []
@@ -3141,6 +3142,7 @@ def _mesh_runner(rank, n, tmp, plan, dev):
                                          viz_to_disk=False), timer=timer)
                 _sync(dev)
             finally:
+                spans.close()
                 accum.sem_bev_generator.close()
                 sharded.shutdown_mesh_workers(mesh)
                 del accum.integrate
@@ -3249,8 +3251,7 @@ def _mesh_step(rank, n, tmp, plan, dev):
                                 dict(plan['bev'], mesh=mesh),
                                 use_gt_sem=False)
             engine = accum.sem_bev_generator.mesh_raster.raster
-            spans = _Spans(dev)
-            engine.mark = spans.mark
+            spans = _Spans()
             live = []
             scatter_s = _time_shard(accum.sem_bev_generator.mesh_raster, dev,
                                     live=live)
@@ -3268,6 +3269,7 @@ def _mesh_step(rank, n, tmp, plan, dev):
                                   if not k.startswith('trajs')}
                                  for b in got])
             finally:
+                spans.close()
                 accum.sem_bev_generator.close()
             _save(tmp, 'mesh_step_bevs', bevs)
             steady = statistics.median(step_s[1:])

@@ -20,6 +20,7 @@ from pc_accumulation_lib_tpu_torch.accum import buffer
 from pc_accumulation_lib_tpu_torch.bev import core as bev_core
 from pc_accumulation_lib_tpu_torch.bev.rgb_bev import RGBBEVGenerator
 from pc_accumulation_lib_tpu_torch.bev.sem_bev import SemBEVGenerator
+from pc_accumulation_lib_tpu_torch.utils import profiling
 from pc_accumulation_lib_tpu_torch.utils.io import (read_compressed_pickle,
                                                     write_compressed_pickle)
 
@@ -90,6 +91,7 @@ class SemanticPointCloudAccumulator:
                                        a.max_instances, self.device)
         # Host bookkeeping (in-horizon window only, trimmed on eviction).
         self.frame_count = 0          # next global frame id
+        self.last_frame = None        # span frame id of the newest frame
         self.window_start = 0         # global id of first in-horizon frame
         self.poses: List[list] = []   # world-frame ego positions [x,y,z]
         self.T_world_velo: List[np.ndarray] = []  # per-frame velo->world
@@ -204,27 +206,46 @@ class SemanticPointCloudAccumulator:
         newest), rastered from the whole flat point buffer with the
         classic raster; frames outside the window are masked by frame id.
         With ``async_fetch`` returns a zero-arg callable yielding the list,
-        after all device work and copies are queued."""
-        n_frames = len(self.poses)
-        T_ref_world = self._ref_transform()
-        poses_ref = self._poses_ref(T_ref_world)
-        pi = n_frames if present_idx is None else present_idx
-        ref_idx = (n_frames - 1) if present_idx is None else present_idx
-        bev_coords = poses_ref[ref_idx]
+        after all device work and copies are queued. Spans 'generate_bev'
+        (children 'trajs', 'raster', 'fetch') and, where the list is
+        made, 'harvest', all of the newest frame."""
+        frame = self.last_frame
+        with profiling.span('generate_bev', frame):
+            handle = self._dispatch_bev(present_idx, bev_num, gen_future)
 
-        trajs: Dict = {'ego_traj_present': poses_ref[:pi] - bev_coords}
-        other_p, other_f, other_full = self._other_trajs(pi, gen_future)
-        trajs['other_trajs_present'] = other_p
-        if gen_future:
-            trajs['ego_traj_future'] = poses_ref[pi:] - bev_coords
-            trajs['ego_traj_full'] = poses_ref - bev_coords
-            trajs['other_trajs_future'] = other_f
-            trajs['other_trajs_full'] = other_full
-        lanes = self._gt_lanes()
-        if lanes is not None:
-            trajs['gt_lanes'] = [
-                np.asarray(ln, np.float64) @ T_ref_world[:3, :3].T
-                + T_ref_world[:3, 3] - bev_coords for ln in lanes]
+        def finalize():
+            with profiling.span('harvest', frame):
+                bevs = handle()
+                self._harvested()
+            return bevs
+
+        return finalize if async_fetch else finalize()
+
+    def _harvested(self) -> None:
+        """Host checks after a harvest, before its samples are returned."""
+
+    def _dispatch_bev(self, present_idx, bev_num, gen_future):
+        n_frames = len(self.poses)
+        with profiling.span('trajs'):
+            T_ref_world = self._ref_transform()
+            poses_ref = self._poses_ref(T_ref_world)
+            pi = n_frames if present_idx is None else present_idx
+            ref_idx = (n_frames - 1) if present_idx is None else present_idx
+            bev_coords = poses_ref[ref_idx]
+
+            trajs: Dict = {'ego_traj_present': poses_ref[:pi] - bev_coords}
+            other_p, other_f, other_full = self._other_trajs(pi, gen_future)
+            trajs['other_trajs_present'] = other_p
+            if gen_future:
+                trajs['ego_traj_future'] = poses_ref[pi:] - bev_coords
+                trajs['ego_traj_full'] = poses_ref - bev_coords
+                trajs['other_trajs_future'] = other_f
+                trajs['other_trajs_full'] = other_full
+            lanes = self._gt_lanes()
+            if lanes is not None:
+                trajs['gt_lanes'] = [
+                    np.asarray(ln, np.float64) @ T_ref_world[:3, :3].T
+                    + T_ref_world[:3, 3] - bev_coords for ln in lanes]
 
         params = bev_core.identity_params(
             T_ref_world=T_ref_world.astype(np.float32),
@@ -235,7 +256,7 @@ class SemanticPointCloudAccumulator:
         return self.sem_bev_generator.generate_samples(
             self.state.points.view(f * n, d), self.state.valid.view(f * n),
             self.state.frame_ids.repeat_interleave(n), self.state.inst_dyn,
-            params, trajs, bev_num, gen_future, async_fetch=async_fetch)
+            params, trajs, bev_num, gen_future, async_fetch=True)
 
     write_compressed_pickle = staticmethod(write_compressed_pickle)
     read_compressed_pickle = staticmethod(read_compressed_pickle)

@@ -30,6 +30,7 @@ from pc_accumulation_lib_tpu_torch.ops import geometry
 from pc_accumulation_lib_tpu_torch.ops import icp as icp_ops
 from pc_accumulation_lib_tpu_torch.ops import imgcodec
 from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
+from pc_accumulation_lib_tpu_torch.utils import profiling
 
 
 def window_update(seg_ring, ws, T_world, T_world_prev, frame_id: int,
@@ -78,11 +79,13 @@ class DeviceObs(NamedTuple):
     """An uploaded observation (upload_obs): ``aux`` is the camera image
     (camera path: a tensor, or the yuv wire's tuple of tensors) or the
     padded per-point GT labels (GT path); ``rgb_host`` keeps the host
-    image for the frame bookkeeping."""
+    image for the frame bookkeeping; ``frame`` is the frame id of its
+    spans (profiling.new_frame)."""
     rgb_host: object
     pc_pad: torch.Tensor
     valid: torch.Tensor
     aux: object
+    frame: int
 
 
 class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
@@ -196,26 +199,33 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
 
     def upload_obs(self, obs) -> DeviceObs:
         """Start the host->device upload of one (rgb, pc, sem_gt)
-        observation; integrate/step accept the result in its place."""
+        observation; integrate/step accept the result in its place. Span
+        'upload' (a new frame id); counters 'upload.bytes' and the pinned
+        allocations."""
         if isinstance(obs, DeviceObs):
             return obs
-        rgb, pc, sem_gt = obs
-        pc = np.asarray(pc, np.float32)
-        pc_pad, valid = self._pad_pc(pc)
-        if self.use_gt_sem or self.semseg_model is None:
-            aux = np.zeros(self.accum_cfg.max_points_per_frame, np.float32)
-            aux[:pc.shape[0]] = np.asarray(sem_gt).reshape(-1)
-        else:
-            aux = self._prep_rgb(rgb)
-        if isinstance(aux, tuple):
-            aux_bytes = sum(p.nbytes for p in aux)
-            aux_dev = tuple(self._to_device(p) for p in aux)
-        else:
-            aux_bytes, aux_dev = aux.nbytes, self._to_device(aux)
-        self.upload_bytes_total += pc_pad.nbytes + valid.nbytes + aux_bytes
-        self.upload_frames += 1
-        return DeviceObs(rgb, self._to_device(pc_pad),
-                         self._to_device(valid), aux_dev)
+        frame = profiling.new_frame()
+        with profiling.span('upload', frame), profiling.pinned_allocs():
+            rgb, pc, sem_gt = obs
+            pc = np.asarray(pc, np.float32)
+            pc_pad, valid = self._pad_pc(pc)
+            if self.use_gt_sem or self.semseg_model is None:
+                aux = np.zeros(self.accum_cfg.max_points_per_frame,
+                               np.float32)
+                aux[:pc.shape[0]] = np.asarray(sem_gt).reshape(-1)
+            else:
+                aux = self._prep_rgb(rgb)
+            if isinstance(aux, tuple):
+                aux_bytes = sum(p.nbytes for p in aux)
+                aux_dev = tuple(self._to_device(p) for p in aux)
+            else:
+                aux_bytes, aux_dev = aux.nbytes, self._to_device(aux)
+            nbytes = pc_pad.nbytes + valid.nbytes + aux_bytes
+            self.upload_bytes_total += nbytes
+            self.upload_frames += 1
+            profiling.count('upload.bytes', nbytes)
+            return DeviceObs(rgb, self._to_device(pc_pad),
+                             self._to_device(valid), aux_dev, frame)
 
     def _prep_rgb(self, rgb):
         """The host image on its wire: the yuv tuple, uint8 (quantized)
@@ -245,40 +255,53 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                          first: bool):
         """One frame's device work; updates the device state in place and
         returns the packed (37,) vector [T_world_velo(16), T_new_prev(16),
-        n_painted, icp_n_corr, window_start, path_len, ring_overflow]."""
+        n_painted, icp_n_corr, window_start, path_len, ring_overflow].
+        Device spans at its stages: 'dequant', 'icp.pre', 'icp.register',
+        'decode', 'semseg', 'paint', 'insert', 'window'."""
         dev = self.device
-        pc = self._dequant(pc_pad)
-        new_cloud = self._icp_pre(pc[:, :3], valid)
+        span = profiling.span
+        with span('dequant', device=True):
+            pc = self._dequant(pc_pad)
+        with span('icp.pre', device=True):
+            new_cloud = self._icp_pre(pc[:, :3], valid)
         if first:
             T_new_prev = torch.eye(4, dtype=torch.float32, device=dev)
             n_corr = torch.zeros((), dtype=torch.float32, device=dev)
         else:
             init = (self._T_new_prev_dev if self.icp_cfg.warm_start
                     else torch.eye(4, dtype=torch.float32, device=dev))
-            T_new_prev, _, n_corr = self._icp_reg(
-                self._icp_prev_cloud, new_cloud, init,
-                self.icp_cfg.max_corr_dist)
+            with span('icp.register', device=True):
+                T_new_prev, _, n_corr = self._icp_reg(
+                    self._icp_prev_cloud, new_cloud, init,
+                    self.icp_cfg.max_corr_dist)
         T_world_prev = self._T_world_dev
         T_world = T_world_prev @ geometry.rigid_inverse(T_new_prev)
         filters = self.semseg_filters
         if self.use_gt_sem or self.semseg_model is None:
-            painted, valid_out = buffer.paint_frame_gt(pc, valid, aux,
-                                                       T_world, filters)
+            with span('paint', device=True):
+                painted, valid_out = buffer.paint_frame_gt(
+                    pc, valid, aux, T_world, filters)
         else:
-            rgb_img = (imgcodec.decode_wire(aux) if isinstance(aux, tuple)
-                       else aux.to(torch.float32))
-            semseg = self.semseg_model.predict(rgb_img[None])[0]
-            painted, valid_out = buffer.paint_frame_camera(
-                pc, valid, rgb_img, semseg, self.P_velo_frame, T_world,
-                filters)
-        painted, valid_out, n_valid = buffer.compact_rows(
-            painted, valid_out, self.accum_cfg.painted_cap)
-        buffer.insert_frame(self.state, painted, valid_out, frame_id)
-        ws_new, path, ring_ovf = window_update(
-            self._seg_ring_dev, self._ws_dev, T_world, T_world_prev,
-            frame_id, float(self.horizon_dist), first)
-        self._pose_vec_dev = pose_params_vec(T_world, T_world_prev, ws_new,
-                                             frame_id)
+            with span('decode', device=True):
+                rgb_img = (imgcodec.decode_wire(aux)
+                           if isinstance(aux, tuple)
+                           else aux.to(torch.float32))
+            with span('semseg', device=True):
+                semseg = self.semseg_model.predict(rgb_img[None])[0]
+            with span('paint', device=True):
+                painted, valid_out = buffer.paint_frame_camera(
+                    pc, valid, rgb_img, semseg, self.P_velo_frame, T_world,
+                    filters)
+        with span('insert', device=True):
+            painted, valid_out, n_valid = buffer.compact_rows(
+                painted, valid_out, self.accum_cfg.painted_cap)
+            buffer.insert_frame(self.state, painted, valid_out, frame_id)
+        with span('window', device=True):
+            ws_new, path, ring_ovf = window_update(
+                self._seg_ring_dev, self._ws_dev, T_world, T_world_prev,
+                frame_id, float(self.horizon_dist), first)
+            self._pose_vec_dev = pose_params_vec(T_world, T_world_prev,
+                                                 ws_new, frame_id)
         self._icp_prev_cloud = new_cloud
         self._T_world_dev = T_world
         self._T_new_prev_dev = T_new_prev
@@ -289,9 +312,15 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                          ws_new.to(torch.float32), path, ring_ovf])])
 
     def _dispatch_obs(self, obs):
-        """Queue one observation's device work; returns a zero-arg closure
-        that waits for its packed vector and does the host bookkeeping."""
-        rgb, pc_pad, valid, aux = self.upload_obs(obs)
+        """Queue one observation's device work (span 'integrate'); returns
+        a zero-arg closure that waits for its packed vector (span
+        'sync.step_vec') and does the host bookkeeping."""
+        rgb, pc_pad, valid, aux, frame = self.upload_obs(obs)
+        self.last_frame = frame
+        with profiling.span('integrate', frame):
+            return self._dispatch_frame(rgb, pc_pad, valid, aux)
+
+    def _dispatch_frame(self, rgb, pc_pad, valid, aux):
         first = self._icp_prev_cloud is None
         if first:
             dev = self.device
@@ -321,8 +350,10 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
             landed.record(torch.cuda.current_stream(self.device))
 
         def fetch():
-            if landed is not None:
-                landed.synchronize()
+            with profiling.span('sync.step_vec'):
+                if landed is not None:
+                    landed.synchronize()
+                    profiling.count('host_syncs')
             vec = packed_host.numpy().astype(np.float64)
             T_world_velo = vec[:16].reshape(4, 4)
             T_new_prev = vec[16:32].reshape(4, 4)
@@ -420,43 +451,63 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                                          gen_future=gen_future)
 
             return finalize_classic if async_fetch else finalize_classic()
+        devs = [self.upload_obs(obs) for obs in observations]
+        frame = devs[-1].frame if devs else self.last_frame
+        with profiling.span('step', frame):
+            handle = self._dispatch_step(devs, bev_num, gen_future)
+
+        def finalize():
+            with profiling.span('harvest', frame):
+                return handle()
+
+        return finalize if async_fetch else finalize()
+
+    def _dispatch_step(self, devs, bev_num, gen_future):
+        """step()'s device work and copies, with spans 'integrate',
+        'prep', 'raster', 'pack' and 'fetch'; returns its finalize (spans
+        'sync.step_vec', 'sync.live_rows' and the generator's)."""
+        gen = self.sem_bev_generator
         # Size the previous steps' sparse fetches first: their copies
         # queue ahead of everything this step enqueues.
         gen.resolve_ready_fetches()
-        handles = [self._dispatch_obs(obs) for obs in observations]
+        handles = [self._dispatch_obs(d) for d in devs]
         ccap = self.accum_cfg.compact_cap
         ax = (1 if gen.mesh_raster is None
               else pmesh.axis_size(gen.mesh_raster.mesh, 'points'))
         n_live = None
         cum_at_dispatch = self._cum_growth
-        if ccap:
-            # Once-per-step live-window compaction: every raster sweeps
-            # the rung's rows instead of max_frames * painted_cap.
-            ccap = self._pick_rung(ccap, ax)
-            flat_pts, pt_fids, flat_valid, n_live = buffer.compact_window(
-                self.state, self._ws_dev, ccap)
-            n_live = (n_live.to('cpu', non_blocking=True),
-                      self._event())
-        else:
-            f, n, d = self.state.points.shape
-            flat_pts = self.state.points.view(f * n, d)
-            flat_valid = self.state.valid.view(f * n)
-            pt_fids = self.state.frame_ids.repeat_interleave(n)
-        prepped = None
-        if gen.mesh_raster is not None:
-            # Scatter the flat snapshot over the points axis once per step;
-            # each of the bev_num rasters then takes only its parameters.
-            if flat_pts.shape[0] % ax:
-                raise ValueError(
-                    f'step() on a mesh: flat point count {flat_pts.shape[0]}'
-                    f' must be divisible by the points-axis size {ax} — '
-                    'size AccumConfig.compact_cap (or max_frames * '
-                    'painted_cap) to a multiple of the mesh points axis.')
-            gen.mesh_raster.shard(flat_pts, flat_valid, pt_fids,
-                                  self.state.inst_dyn)
-        else:
-            prepped = gen.prep_points(flat_pts, self.state.inst_dyn,
-                                      self._pose_vec_dev)
+        with profiling.span('prep', device=True):
+            if ccap:
+                # Once-per-step live-window compaction: every raster sweeps
+                # the rung's rows instead of max_frames * painted_cap.
+                ccap = self._pick_rung(ccap, ax)
+                flat_pts, pt_fids, flat_valid, n_live = (
+                    buffer.compact_window(self.state, self._ws_dev, ccap))
+                n_live = (n_live.to('cpu', non_blocking=True),
+                          self._event())
+            else:
+                f, n, d = self.state.points.shape
+                flat_pts = self.state.points.view(f * n, d)
+                flat_valid = self.state.valid.view(f * n)
+                pt_fids = self.state.frame_ids.repeat_interleave(n)
+            prepped = None
+            if gen.mesh_raster is not None:
+                # Scatter the flat snapshot over the points axis once per
+                # step; each of the bev_num rasters then takes only its
+                # parameters.
+                if flat_pts.shape[0] % ax:
+                    raise ValueError(
+                        'step() on a mesh: flat point count '
+                        f'{flat_pts.shape[0]} must be divisible by the '
+                        f'points-axis size {ax} — size '
+                        'AccumConfig.compact_cap (or max_frames * '
+                        'painted_cap) to a multiple of the mesh points '
+                        'axis.')
+                gen.mesh_raster.shard(flat_pts, flat_valid, pt_fids,
+                                      self.state.inst_dyn)
+            else:
+                prepped = gen.prep_points(flat_pts, self.state.inst_dyn,
+                                          self._pose_vec_dev)
 
         def trajs_fn():
             # Runs after the integrate fetches have synced the host poses.
@@ -480,8 +531,10 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
             for h in handles:
                 h()
             if n_live is not None:
-                if n_live[1] is not None:
-                    n_live[1].synchronize()
+                with profiling.span('sync.live_rows'):
+                    if n_live[1] is not None:
+                        n_live[1].synchronize()
+                        profiling.count('host_syncs')
                 nl = int(n_live[0])
                 self.max_live_rows = max(self.max_live_rows, nl)
                 if nl > ccap:
@@ -499,7 +552,7 @@ class Kitti360SemanticPointCloudAccumulator(SemanticPointCloudAccumulator):
                         nl + (self._cum_growth - cum_at_dispatch))
             return bev_handle()
 
-        return finalize if async_fetch else finalize()
+        return finalize
 
     def _event(self):
         """An event recorded on the current stream (None on the CPU)."""

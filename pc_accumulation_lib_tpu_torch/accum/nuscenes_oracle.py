@@ -19,6 +19,8 @@ frame step).
 """
 from __future__ import annotations
 
+import collections
+import threading
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -29,6 +31,7 @@ from pc_accumulation_lib_tpu_torch.accum import buffer, pointpack, tracking
 from pc_accumulation_lib_tpu_torch.accum.base import (
     SemanticPointCloudAccumulator)
 from pc_accumulation_lib_tpu_torch.ops import imgcodec
+from pc_accumulation_lib_tpu_torch.utils import profiling
 
 _MAX_DYN_UPDATES = 64  # padded per-frame dynamic-flag update batch
 
@@ -82,18 +85,26 @@ def decode_multicam(pc_wire: torch.Tensor, img_parts: tuple, n_pad: int):
 @torch.no_grad()
 def paint_insert_multicam(state, semseg_model, filters, cap: int, pc_pad,
                           valid, cam_idx, imgs, T_world_ego, inst_remap,
-                          frame_id: int):
+                          frame_id: int, dyn_updates=None):
     """One frame's paint on the device: one batched semseg forward over
     the cameras' float images, the multi-camera paint, compact_rows and
-    the ring insert (in place). Returns (painted count 0-d tensor,
-    semsegs (cams,H,W) int32)."""
-    semsegs = semseg_model.predict(imgs)
-    painted, valid_out = buffer.paint_frame_multicam(
-        pc_pad, valid, cam_idx, imgs, semsegs, T_world_ego, inst_remap,
-        filters)
-    painted, valid_out, n_valid = buffer.compact_rows(painted, valid_out,
-                                                      cap)
-    buffer.insert_frame(state, painted, valid_out, frame_id)
+    the ring insert (in place), and with ``dyn_updates`` (padded newly
+    dynamic instance ids, 0 a no-op) their flags raised in the dyn table.
+    Spans 'semseg', 'paint' and 'insert'. Returns (painted count 0-d
+    tensor, semsegs (cams,H,W) int32)."""
+    with profiling.span('semseg', device=True):
+        semsegs = semseg_model.predict(imgs)
+    with profiling.span('paint', device=True):
+        painted, valid_out = buffer.paint_frame_multicam(
+            pc_pad, valid, cam_idx, imgs, semsegs, T_world_ego, inst_remap,
+            filters)
+    with profiling.span('insert', device=True):
+        painted, valid_out, n_valid = buffer.compact_rows(painted,
+                                                          valid_out, cap)
+        buffer.insert_frame(state, painted, valid_out, frame_id)
+        if dyn_updates is not None:
+            buffer.set_instance_dyn(state, dyn_updates,
+                                    (dyn_updates > 0).to(torch.float32))
     return n_valid, semsegs
 
 
@@ -126,13 +137,14 @@ class OracleDeviceObs(NamedTuple):
     """An uploaded observation (``upload_obs``): the points, validity,
     camera indices and image parts on their wires, on the device; the
     host ``obs`` dict and points for the tracking and pose work done in
-    integrate order."""
+    integrate order; the frame id of its spans (profiling.new_frame)."""
     obs: dict
     pc: np.ndarray
     pc_pad: torch.Tensor
     valid: torch.Tensor
     cam_idx: torch.Tensor
     imgs: tuple
+    frame: int
 
 
 class NuScenesOracleSemanticPointCloudAccumulator(
@@ -180,8 +192,10 @@ class NuScenesOracleSemanticPointCloudAccumulator(
         self.upload_bytes_total = 0   # host -> device observation bytes
         self.upload_frames = 0
         # Painted counts of integrated frames not yet read on the host, and
-        # the largest one read.
-        self._painted_pending: list = []
+        # the largest one read. The dispatching thread and a finalize on a
+        # drain thread both take them (_painted_lock).
+        self._painted_pending = collections.deque()
+        self._painted_lock = threading.Lock()
         self.max_painted = 0
 
     # ------------------------------------------------------------------
@@ -190,20 +204,25 @@ class NuScenesOracleSemanticPointCloudAccumulator(
     def upload_obs(self, obs) -> OracleDeviceObs:
         """Start the host -> device upload of one observation dict; the
         result is accepted by ``integrate`` in its place. Tracking and pose
-        state are not touched here."""
+        state are not touched here. Span 'upload' (a new frame id);
+        counters 'upload.bytes' and the pinned allocations."""
         if isinstance(obs, OracleDeviceObs):
             return obs
-        pc, pc_wire, valid, cam_idx, parts = encode_multicam_obs(
-            obs, self.accum_cfg.max_points_per_frame, self.img_transfer,
-            self.transfer_dtype)
-        self.upload_bytes_total += (pc_wire.nbytes + cam_idx.nbytes
-                                    + valid.size
-                                    + sum(p.nbytes for p in parts))
-        self.upload_frames += 1
-        return OracleDeviceObs(obs, pc, self._to_device(pc_wire),
-                               self._to_device(valid),
-                               self._to_device(cam_idx),
-                               tuple(self._to_device(p) for p in parts))
+        frame = profiling.new_frame()
+        with profiling.span('upload', frame), profiling.pinned_allocs():
+            pc, pc_wire, valid, cam_idx, parts = encode_multicam_obs(
+                obs, self.accum_cfg.max_points_per_frame, self.img_transfer,
+                self.transfer_dtype)
+            nbytes = (pc_wire.nbytes + cam_idx.nbytes + valid.size
+                      + sum(p.nbytes for p in parts))
+            self.upload_bytes_total += nbytes
+            self.upload_frames += 1
+            profiling.count('upload.bytes', nbytes)
+            return OracleDeviceObs(obs, pc, self._to_device(pc_wire),
+                                   self._to_device(valid),
+                                   self._to_device(cam_idx),
+                                   tuple(self._to_device(p) for p in parts),
+                                   frame)
 
     def integrate(self, observations: list) -> int:
         """Integrate observation dicts or ``OracleDeviceObs``. No eviction:
@@ -217,19 +236,22 @@ class NuScenesOracleSemanticPointCloudAccumulator(
                     dyn_updates, frame_id: int):
         """One frame's device work: wire decode, paint, insert, dyn-table
         update."""
-        pc_pad, imgs = decode_multicam(dev.pc_pad, dev.imgs,
-                                       self.accum_cfg.max_points_per_frame)
-        n_valid, semsegs = paint_insert_multicam(
+        with profiling.span('decode', device=True):
+            pc_pad, imgs = decode_multicam(
+                dev.pc_pad, dev.imgs, self.accum_cfg.max_points_per_frame)
+        return paint_insert_multicam(
             self.state, self.semseg_model, self.semseg_filters,
             self.accum_cfg.painted_cap, pc_pad, dev.valid, dev.cam_idx,
-            imgs, T_world_ego, remap, frame_id)
-        buffer.set_instance_dyn(self.state, dyn_updates,
-                                (dyn_updates > 0).to(torch.float32))
-        return n_valid, semsegs
+            imgs, T_world_ego, remap, frame_id, dyn_updates)
 
     def _integrate_one(self, obs):
-        self.check_painted()
         dev = self.upload_obs(obs)
+        self.last_frame = dev.frame
+        with profiling.span('integrate', dev.frame):
+            self._integrate_device_obs(dev)
+
+    def _integrate_device_obs(self, dev: OracleDeviceObs):
+        self.check_painted()
         obs, pc = dev.obs, dev.pc
         T_ego_global = np.asarray(obs['ego_at_lidar_ts'], np.float64)
         if self.T_global_world is None:
@@ -244,17 +266,19 @@ class NuScenesOracleSemanticPointCloudAccumulator(
         pose[2] += self.ego_pose_z
 
         # Fake detection and tracking on the host.
-        centers_world = [self.T_global_world[:3, :3] @ np.asarray(c)
-                         + self.T_global_world[:3, 3]
-                         for c in obs['inst_center']]
-        frame_to_global, newly_dynamic = self.tracker.update(
-            self.ts, obs['inst_tokens'], obs['inst_cls'], centers_world)
-        if self.tracker._next_global >= self.accum_cfg.max_instances:
-            raise RuntimeError(
-                f'Instance table overflow (> {self.accum_cfg.max_instances}'
-                '); raise AccumConfig.max_instances.')
-        remap, dyn_updates = instance_tables(pc, obs['inst_tokens'],
-                                             frame_to_global, newly_dynamic)
+        with profiling.span('track'):
+            centers_world = [self.T_global_world[:3, :3] @ np.asarray(c)
+                             + self.T_global_world[:3, 3]
+                             for c in obs['inst_center']]
+            frame_to_global, newly_dynamic = self.tracker.update(
+                self.ts, obs['inst_tokens'], obs['inst_cls'], centers_world)
+            if self.tracker._next_global >= self.accum_cfg.max_instances:
+                raise RuntimeError(
+                    f'Instance table overflow (> '
+                    f'{self.accum_cfg.max_instances}); raise '
+                    'AccumConfig.max_instances.')
+            remap, dyn_updates = instance_tables(
+                pc, obs['inst_tokens'], frame_to_global, newly_dynamic)
 
         n_valid, semsegs = self._fused_step(
             dev, self._to_device(T_ego_world.astype(np.float32)),
@@ -286,39 +310,38 @@ class NuScenesOracleSemanticPointCloudAccumulator(
         if self.device.type == 'cuda':
             landed = torch.cuda.Event()
             landed.record(torch.cuda.current_stream(self.device))
-        self._painted_pending.append((host, landed))
+        with self._painted_lock:
+            self._painted_pending.append((host, landed))
 
     def check_painted(self) -> None:
         """Read the painted counts of the frames integrated so far and
         raise if one exceeded the per-frame cap (points must not be
-        dropped silently)."""
+        dropped silently). Each count is taken by one caller, under the
+        lock; its wait (span 'sync.painted', counter 'host_syncs') is
+        outside it."""
         cap = self.accum_cfg.painted_cap
-        while self._painted_pending:
-            host, landed = self._painted_pending.pop(0)
-            if landed is not None:
-                landed.synchronize()
+        while True:
+            with self._painted_lock:
+                if not self._painted_pending:
+                    return
+                host, landed = self._painted_pending.popleft()
+            with profiling.span('sync.painted'):
+                if landed is not None:
+                    landed.synchronize()
+                    profiling.count('host_syncs')
             n = int(host)
-            self.max_painted = max(self.max_painted, n)
+            with self._painted_lock:
+                self.max_painted = max(self.max_painted, n)
             if n > cap:
                 raise RuntimeError(
                     f'Painted-point overflow: frame produced {n} > cap '
                     f'{cap}; raise AccumConfig.max_painted_points_per_frame '
                     '(points must not be silently dropped).')
 
-    def generate_bev(self, present_idx: Optional[int] = None,
-                     bev_num: int = 1, gen_future: bool = False,
-                     async_fetch: bool = False):
-        """As the base's; the painted counts of every integrated frame are
-        checked before the samples are returned."""
-        handle = super().generate_bev(present_idx, bev_num, gen_future,
-                                      async_fetch=True)
-
-        def finalize():
-            bevs = handle()
-            self.check_painted()
-            return bevs
-
-        return finalize if async_fetch else finalize()
+    def _harvested(self) -> None:
+        """The painted counts of every integrated frame are checked before
+        the samples are returned."""
+        self.check_painted()
 
     # ------------------------------------------------------------------
     # Trajectories and lanes for BEV generation

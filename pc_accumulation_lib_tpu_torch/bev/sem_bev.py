@@ -24,7 +24,6 @@ on a persistent 2-thread pool.
 from __future__ import annotations
 
 import threading
-import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional
@@ -36,6 +35,7 @@ from pc_accumulation_lib_tpu_torch.bev import core, native_decode
 from pc_accumulation_lib_tpu_torch.ops import geometry
 from pc_accumulation_lib_tpu_torch.ops import trajectory as traj_ops
 from pc_accumulation_lib_tpu_torch.ops import warp as warp_ops
+from pc_accumulation_lib_tpu_torch.utils import profiling
 
 _MAP_KEYS = ('road', 'intensity', 'rgb', 'dynamic', 'elevation')
 FETCH_DTYPES = ('float16', 'quantized', 'sparse')
@@ -158,15 +158,15 @@ class SemBEVGenerator:
         # Sparse-fetch telemetry (the JAX package's names): fallbacks to
         # the dense words, the largest occupancy (overall and per split),
         # the per-split sums over n_occupied_obs samples, refetches of a
-        # truncated fetch, the last harvest's split of waits and decode
-        # time and its wire bytes, and the byte hint per split count.
+        # truncated fetch, and the byte hint per split count. A harvest's
+        # waits, decode time and wire bytes are spans and counters
+        # (utils/profiling.py).
         self.sparse_overflows = 0
         self.max_occupied = 0
         self.max_occupied_split = [0, 0, 0]
         self.sum_occupied_split = [0, 0, 0]
         self.n_occupied_obs = 0
         self.sparse_short_fetches = 0
-        self.last_harvest = None
         self._fetch_hint_bytes = {}        # {S: bytes}
         self._step_used_max = {}           # {S: bytes}
         self._step_used_n = {}             # {S: samples this step}
@@ -327,15 +327,21 @@ class SemBEVGenerator:
 
     def _raster_all(self, points, valid, pt_frame_ids, inst_dyn, params,
                     gen_future):
-        """One classic-raster output per entry of ``params``; on a mesh
-        the flat rows are scattered over it once for all of them."""
+        """One classic-raster output per entry of ``params`` (a 'raster'
+        span each); on a mesh the flat rows are scattered over it once
+        for all of them."""
         if not params:
             return []
-        if self.mesh_raster is None:
-            return [self._raster(points, valid, pt_frame_ids, inst_dyn, p,
-                                 gen_future) for p in params]
-        self.mesh_raster.shard(points, valid, pt_frame_ids, inst_dyn)
-        return [self.mesh_raster(p, gen_future) for p in params]
+        if self.mesh_raster is not None:
+            self.mesh_raster.shard(points, valid, pt_frame_ids, inst_dyn)
+        outs = []
+        for p in params:
+            with profiling.span('raster', device=True):
+                outs.append(
+                    self._raster(points, valid, pt_frame_ids, inst_dyn, p,
+                                 gen_future) if self.mesh_raster is None
+                    else self.mesh_raster(p, gen_future))
+        return outs
 
     def prep_points(self, points, inst_dyn, pose_vec):
         """Once-per-step augmentation-invariant point prep
@@ -390,28 +396,35 @@ class SemBEVGenerator:
                                prepped[2], pose_vec, a, gen_future)
             outs, groups = [], []
             for g0 in range(0, n_samples, fetch_group):
-                sp, dn = run(aug[g0:g0 + fetch_group])
-                groups.append(self._start_fetch(sp, gen_future))
+                with profiling.span('raster', device=True):
+                    sp, dn = run(aug[g0:g0 + fetch_group])
+                with profiling.span('fetch'):
+                    groups.append(self._start_fetch(sp, gen_future))
                 outs += [(_row_getter(sp, i), _row_getter(dn, i))
                          for i in range(sp.shape[0])]
             return self._make_device_finalize(outs, draws, groups,
                                               fetch_group, n_samples,
                                               gen_future, trajs_fn)
-        if mesh is not None:
-            outs = [mesh((pose_vec, aug[i]), gen_future)
-                    for i in range(n_samples)]
-        else:
+        if mesh is None:
             ref_xyz, packed, packed2 = prepped
             raster = self.prepped_raster()
-            outs = [raster(ref_xyz, valid, pt_frame_ids, packed, packed2,
-                           (pose_vec, aug[i]), gen_future)
-                    for i in range(n_samples)]
+        outs = []
+        for i in range(n_samples):
+            with profiling.span('raster', device=True):
+                outs.append(
+                    mesh((pose_vec, aug[i]), gen_future) if mesh is not None
+                    else raster(ref_xyz, valid, pt_frame_ids, packed,
+                                packed2, (pose_vec, aug[i]), gen_future))
         if not sparse:
             return self._fetch(self._encode_outs(outs), draws, trajs_fn,
                                gen_future)
-        groups = [self._start_fetch(torch.stack(
-            [o[0] for o in outs[g0:g0 + fetch_group]]), gen_future)
-            for g0 in range(0, n_samples, fetch_group)]
+        groups = []
+        for g0 in range(0, n_samples, fetch_group):
+            with profiling.span('pack', device=True):
+                stacked = torch.stack([o[0] for o in
+                                       outs[g0:g0 + fetch_group]])
+            with profiling.span('fetch'):
+                groups.append(self._start_fetch(stacked, gen_future))
         return self._make_device_finalize(outs, draws, groups, fetch_group,
                                           n_samples, gen_future, trajs_fn)
 
@@ -422,7 +435,8 @@ class SemBEVGenerator:
         """The quantized encoding of freshly dispatched float16 stacks
         (the sparse raster's outputs come encoded)."""
         if self.fetch_dtype == 'quantized':
-            return [core.quantize_stack(s) for s in outs]
+            with profiling.span('pack', device=True):
+                return [core.quantize_stack(s) for s in outs]
         return outs
 
     def _harvest(self, outs, draws, trajs, gen_future):
@@ -432,19 +446,20 @@ class SemBEVGenerator:
         if self.fetch_dtype != 'sparse':
             return self._fetch(self._encode_outs(outs), draws, trajs,
                                gen_future)
-        copies = [self._start_fetch(o[0], gen_future) for o in outs]
+        with profiling.span('fetch'):
+            copies = [self._start_fetch(o[0], gen_future) for o in outs]
 
         def finalize() -> List[Dict]:
             tr = trajs() if callable(trajs) else trajs
-            res = [self._assemble(
-                self._fetch_stack(o, gen_future, w, raw=_host(c)), tr,
-                rot_ang, dx, dy, zoom * self.view_size, w, gen_future)
-                for o, c, (rot_ang, dx, dy, zoom, w)
-                in zip(outs, copies, draws)]
+            res = []
+            for o, c, (rot_ang, dx, dy, zoom, w) in zip(outs, copies, draws):
+                with profiling.span('sync.fetch'):
+                    raw = _host(c)
+                res.append(self._assemble(
+                    self._fetch_stack(o, gen_future, w, raw=raw), tr,
+                    rot_ang, dx, dy, zoom * self.view_size, w, gen_future))
             self._note_step_boundary()
-            with self._telemetry_lock:
-                self.last_harvest = dict(
-                    wire_bytes=sum(c[0].numel() for c in copies))
+            profiling.count('fetch.bytes', sum(c[0].numel() for c in copies))
             return res
 
         return finalize
@@ -453,19 +468,24 @@ class SemBEVGenerator:
         """Start each float16 or quantized stack's device->host copy now;
         the returned zero-arg finalize waits for the copies and assembles
         the BEV dicts. ``trajs`` is the trajectory dict or a zero-arg
-        callable giving it."""
-        outs = [o.to('cpu', non_blocking=True) for o in stacks]
-        done = None
-        if self.device.type == 'cuda':
-            # With a CUDA device the copies land in pinned host memory; the
-            # event marks when the last one is done.
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+        callable giving it. Span 'fetch' and counter 'fetch.bytes' here,
+        span 'sync.fetch' for the wait."""
+        with profiling.span('fetch'):
+            outs = [o.to('cpu', non_blocking=True) for o in stacks]
+            done = None
+            if self.device.type == 'cuda':
+                # With a CUDA device the copies land in pinned host memory;
+                # the event marks when the last one is done.
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        profiling.count('fetch.bytes',
+                        sum(o.numel() * o.element_size() for o in outs))
 
         def finalize() -> List[Dict]:
             tr = trajs() if callable(trajs) else trajs
-            if done is not None:
-                done.synchronize()
+            with profiling.span('sync.fetch'):
+                if done is not None:
+                    done.synchronize()
             return [self._assemble(self._fetch_stack(o.numpy(), gen_future),
                                    tr, rot_ang, dx, dy,
                                    zoom * self.view_size, w, gen_future)
@@ -477,8 +497,10 @@ class SemBEVGenerator:
     def _make_device_finalize(self, outs, draws, groups, fetch_group,
                               n_samples, gen_future, trajs_fn):
         """Deferred harvest of sparse group fetches: size and wait for
-        each group's copy, decode + warp + assemble its samples on the
-        harvest pool, update the byte hint, record last_harvest."""
+        each group's copy (spans 'sync.fetch'), decode + warp + assemble
+        its samples on the harvest pool (spans 'harvest.decode' of the
+        caller's frame), update the byte hint; counters 'fetch.bytes' and
+        'fetch.resolved_by.<where the groups were sized>'."""
         holder = {'groups': groups, 'gen_future': gen_future,
                   'resolved': None, 'wire': 0, 'lock': threading.Lock()}
         if any(isinstance(g, _ExactFetch) for g in groups):
@@ -486,21 +508,18 @@ class SemBEVGenerator:
 
         def finalize() -> List[Dict]:
             trajs = trajs_fn()
-            waits, work_s = [], [0.0]
+            frame = profiling.current_frame()
 
             def work(o, draw, raw):
-                t0 = time.perf_counter()
-                rot_ang, dx, dy, zoom, w = draw
-                r = self._assemble(
-                    self._fetch_stack(o, gen_future, w, raw=raw), trajs,
-                    rot_ang, dx, dy, zoom * self.view_size, w, gen_future)
-                with self._telemetry_lock:     # two workers add
-                    work_s[0] += time.perf_counter() - t0
-                return r
+                with profiling.span('harvest.decode', frame):
+                    rot_ang, dx, dy, zoom, w = draw
+                    return self._assemble(
+                        self._fetch_stack(o, gen_future, w, raw=raw), trajs,
+                        rot_ang, dx, dy, zoom * self.view_size, w,
+                        gen_future)
 
-            t_wall = time.perf_counter()
-            resolved, wire = self._resolve_fetch_groups(holder)
-            resolve_wait = time.perf_counter() - t_wall
+            with profiling.span('sync.fetch'):
+                resolved, wire = self._resolve_fetch_groups(holder)
             try:
                 self._pending_fetches.remove(holder)
             except ValueError:
@@ -508,20 +527,15 @@ class SemBEVGenerator:
             futs = []
             pool = self._pool()
             for gi, g0 in enumerate(range(0, n_samples, fetch_group)):
-                t0 = time.perf_counter()
-                raws = _host(resolved[gi])
-                waits.append(time.perf_counter() - t0)
+                with profiling.span('sync.fetch'):
+                    raws = _host(resolved[gi])
                 for j in range(g0, min(g0 + fetch_group, n_samples)):
                     futs.append(pool.submit(work, outs[j], draws[j],
                                             raws[j - g0]))
             res = [f.result() for f in futs]
             self._note_step_boundary()
-            with self._telemetry_lock:
-                self.last_harvest = dict(
-                    waits=waits, work_s=work_s[0],
-                    wall_s=time.perf_counter() - t_wall,
-                    wire_bytes=wire, resolve_wait_s=resolve_wait,
-                    resolved_by=holder.get('resolved_by'))
+            profiling.count('fetch.bytes', wire)
+            profiling.count(f'fetch.resolved_by.{holder["resolved_by"]}')
             return res
 
         return finalize

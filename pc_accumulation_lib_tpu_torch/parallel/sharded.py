@@ -38,6 +38,7 @@ import torch
 from pc_accumulation_lib_tpu_torch import config as cfg
 from pc_accumulation_lib_tpu_torch.bev import core as bev_core
 from pc_accumulation_lib_tpu_torch.ops import rasterize as ras
+from pc_accumulation_lib_tpu_torch.utils import profiling
 from pc_accumulation_lib_tpu_torch.ops import sort_raster
 from pc_accumulation_lib_tpu_torch.parallel import mesh as pmesh
 
@@ -137,10 +138,9 @@ class TileShardedRaster:
     and the capacity at their maximum (the keyed rows at their minimum,
     so the spread floor stays on the safe side).
 
-    ``mark``: None, or a callable taking a phase name, for timing: called
-    with 'start' as a call begins, then as each of its phases has been
-    queued ('route', 'all_to_all', 'stripe_stats', 'gather',
-    'finalize')."""
+    Each call's phases are device spans (utils/profiling.py):
+    'raster.route', 'raster.all_to_all', 'raster.stripe_stats',
+    'raster.gather', 'raster.finalize'."""
 
     def __init__(self, mesh, view_size, pixel_size, sem_idxs, int_scaler,
                  int_sep_scaler, int_mid_threshold, rgb_fill=0,
@@ -165,12 +165,7 @@ class TileShardedRaster:
         self._calibrated = not calibrate_dest_cap
         self.route_peak_rows = 0
         self.route_cap = None
-        self.mark = None
         self._pending = collections.deque()
-
-    def _mark(self, name):
-        if self.mark is not None:
-            self.mark(name)
 
     def __call__(self, points, valid, pt_frame_ids, inst_dyn, params,
                  gen_future):
@@ -207,90 +202,95 @@ class TileShardedRaster:
     def _raster(self, points, valid, pt_frame_ids, inst_dyn, params,
                 gen_future, out=None):
         """One raster: (its output, the (4,) int64 route counts [dropped,
-        busiest stripe, capacity, keyed] reduced over the axis)."""
-        self._mark('start')
-        n, P, axis = self.n, self.P, self.axis
-        n_cells = P * P
-        n_loc = n_cells // n
-        params = bev_core.unpack_params(_params_vec(params, points.device))
-        t, cells, static_m, present_m = bev_core.sample_view(
-            points, valid, pt_frame_ids, inst_dyn, params, self.view_size,
-            P)
-        inten, rgb, sem = _features(points)
-        nsplit = 2 if gen_future else 1
-        sent = n_cells * nsplit
-        base_m = static_m if gen_future else (static_m & present_m)
-        isf = ((~present_m).to(torch.int32) if gen_future
-               else torch.zeros_like(cells))
-        c2 = torch.where(base_m, cells * nsplit + isf, sent).to(torch.int32)
-        road_f = ras.sem_class_mask(
-            sem, [self.sem_idxs['road']]).to(torch.float32)
-        dyn_f = ras.sem_class_mask(
-            sem, [self.sem_idxs[nm] for nm in cfg.DYN_OBJ_CLASSES]).to(
-                torch.float32)
-        w1, w2 = sort_raster.pack_payload_words(road_f, dyn_f, rgb,
-                                                inten * road_f, t[:, 2])
+        busiest stripe, capacity, keyed] reduced over the axis). Device
+        spans 'raster.route', 'raster.all_to_all', 'raster.stripe_stats',
+        'raster.gather' and 'raster.finalize'."""
+        with profiling.span('raster.route', device=True):
+            n, P, axis = self.n, self.P, self.axis
+            n_cells = P * P
+            n_loc = n_cells // n
+            params = bev_core.unpack_params(_params_vec(params,
+                                                        points.device))
+            t, cells, static_m, present_m = bev_core.sample_view(
+                points, valid, pt_frame_ids, inst_dyn, params,
+                self.view_size, P)
+            inten, rgb, sem = _features(points)
+            nsplit = 2 if gen_future else 1
+            sent = n_cells * nsplit
+            base_m = static_m if gen_future else (static_m & present_m)
+            isf = ((~present_m).to(torch.int32) if gen_future
+                   else torch.zeros_like(cells))
+            c2 = torch.where(base_m, cells * nsplit + isf,
+                             sent).to(torch.int32)
+            road_f = ras.sem_class_mask(
+                sem, [self.sem_idxs['road']]).to(torch.float32)
+            dyn_f = ras.sem_class_mask(
+                sem, [self.sem_idxs[nm] for nm in cfg.DYN_OBJ_CLASSES]).to(
+                    torch.float32)
+            w1, w2 = sort_raster.pack_payload_words(road_f, dyn_f, rgb,
+                                                    inten * road_f, t[:, 2])
 
-        # --- route each keyed row to its cell's owner -----------------
-        M_l = points.shape[0]
-        factor = self.dest_cap_factor
-        cap = max(1, int(factor * M_l / n))
-        dest = torch.where(c2 < sent, (c2 // nsplit) % n, n)
-        sd, order = torch.sort(dest)
-        bounds = torch.searchsorted(
-            sd, torch.arange(n + 1, dtype=sd.dtype, device=sd.device),
-            out_int32=True)
-        starts, ends = bounds[:n], bounds[1:]
-        idx = (starts[:, None].to(torch.int64)
-               + torch.arange(cap, device=sd.device)[None, :])
-        ok = idx < ends[:, None]
-        rows = order[idx.clamp(max=M_l - 1)]
-        blocks = torch.stack([
-            torch.where(ok, c2[rows], sent),
-            torch.where(ok, w1[rows], 0),
-            torch.where(ok, w2[rows], 0)], dim=1)          # (n, 3, cap)
-        per_dest = (ends - starts).to(torch.int64)
-        self._mark('route')
-        recv = pmesh.all_to_all(blocks, self.mesh, axis)   # (n, 3, cap)
-        self._mark('all_to_all')
-
-        # --- exact statistics of my stripe -----------------------------
-        rc2 = recv[:, 0].reshape(-1)
-        c2_loc = torch.where(
-            rc2 < sent, (rc2 // nsplit) // n * nsplit + rc2 % nsplit,
-            n_loc * nsplit).to(torch.int32)
-        flat = sort_raster.split_stats_from_words_flat(
-            c2_loc, recv[:, 1].reshape(-1), recv[:, 2].reshape(-1), n_loc,
-            gen_future, rgb_fill=self.rgb_fill)
-        self._mark('stripe_stats')
-
-        # --- gather the stripes: global[l*n + d] = stripe d's [l] -------
-        meta = ['present', 'future', 'full'] if gen_future else ['present']
-        keys = _SPLIT_KEYS if self.pack == 'sparse' else _SPLIT_KEYS[:-1]
-        mine = torch.cat([flat[f'{k}_{s}'].reshape(-1, n_loc)
-                          for s in meta for k in keys])
-        g = pmesh.all_gather(mine, self.mesh, axis)        # (n, C, n_loc)
-        maps = g.permute(1, 2, 0).reshape(-1, P, P)
-        self._mark('gather')
-        chs = {}
-        per = 8 if self.pack == 'sparse' else 7     # + the counts
-        for si, s in enumerate(meta):
-            m = maps[si * per:(si + 1) * per]
-            chs.update({f'road_{s}': m[0], f'intensity_{s}': m[1],
-                        f'rgb_{s}': m[2:5], f'dynamic_{s}': m[5],
-                        f'elevation_{s}': m[6]})
-            if self.pack == 'sparse':
-                chs[f'count_{s}'] = m[7]
-        out = bev_core.emit_outputs(chs, meta, params, P, *self.scalers,
-                                    pack=self.pack,
-                                    sparse_cap=self.sparse_cap, out=out)
-        # One psum carries the dropped and the keyed rows.
-        summed = pmesh.psum(torch.stack([(per_dest - cap).clamp(min=0).sum(),
-                                         per_dest.sum()]), self.mesh, axis)
-        stats = torch.stack([summed[0],
-                             pmesh.pmax(per_dest.max(), self.mesh, axis),
-                             torch.full_like(per_dest[0], cap), summed[1]])
-        self._mark('finalize')
+            # --- route each keyed row to its cell's owner -------------
+            M_l = points.shape[0]
+            factor = self.dest_cap_factor
+            cap = max(1, int(factor * M_l / n))
+            dest = torch.where(c2 < sent, (c2 // nsplit) % n, n)
+            sd, order = torch.sort(dest)
+            bounds = torch.searchsorted(
+                sd, torch.arange(n + 1, dtype=sd.dtype, device=sd.device),
+                out_int32=True)
+            starts, ends = bounds[:n], bounds[1:]
+            idx = (starts[:, None].to(torch.int64)
+                   + torch.arange(cap, device=sd.device)[None, :])
+            ok = idx < ends[:, None]
+            rows = order[idx.clamp(max=M_l - 1)]
+            blocks = torch.stack([
+                torch.where(ok, c2[rows], sent),
+                torch.where(ok, w1[rows], 0),
+                torch.where(ok, w2[rows], 0)], dim=1)          # (n, 3, cap)
+            per_dest = (ends - starts).to(torch.int64)
+        with profiling.span('raster.all_to_all', device=True):
+            recv = pmesh.all_to_all(blocks, self.mesh, axis)   # (n, 3, cap)
+        with profiling.span('raster.stripe_stats', device=True):
+            # --- exact statistics of my stripe -------------------------
+            rc2 = recv[:, 0].reshape(-1)
+            c2_loc = torch.where(
+                rc2 < sent, (rc2 // nsplit) // n * nsplit + rc2 % nsplit,
+                n_loc * nsplit).to(torch.int32)
+            flat = sort_raster.split_stats_from_words_flat(
+                c2_loc, recv[:, 1].reshape(-1), recv[:, 2].reshape(-1),
+                n_loc, gen_future, rgb_fill=self.rgb_fill)
+        with profiling.span('raster.gather', device=True):
+            # --- gather the stripes: global[l*n + d] = stripe d's [l] ---
+            meta = (['present', 'future', 'full'] if gen_future
+                    else ['present'])
+            keys = (_SPLIT_KEYS if self.pack == 'sparse'
+                    else _SPLIT_KEYS[:-1])
+            mine = torch.cat([flat[f'{k}_{s}'].reshape(-1, n_loc)
+                              for s in meta for k in keys])
+            g = pmesh.all_gather(mine, self.mesh, axis)    # (n, C, n_loc)
+            maps = g.permute(1, 2, 0).reshape(-1, P, P)
+        with profiling.span('raster.finalize', device=True):
+            chs = {}
+            per = 8 if self.pack == 'sparse' else 7     # + the counts
+            for si, s in enumerate(meta):
+                m = maps[si * per:(si + 1) * per]
+                chs.update({f'road_{s}': m[0], f'intensity_{s}': m[1],
+                            f'rgb_{s}': m[2:5], f'dynamic_{s}': m[5],
+                            f'elevation_{s}': m[6]})
+                if self.pack == 'sparse':
+                    chs[f'count_{s}'] = m[7]
+            out = bev_core.emit_outputs(chs, meta, params, P,
+                                        *self.scalers, pack=self.pack,
+                                        sparse_cap=self.sparse_cap, out=out)
+            # One psum carries the dropped and the keyed rows.
+            summed = pmesh.psum(torch.stack(
+                [(per_dest - cap).clamp(min=0).sum(), per_dest.sum()]),
+                self.mesh, axis)
+            stats = torch.stack([summed[0],
+                                 pmesh.pmax(per_dest.max(), self.mesh, axis),
+                                 torch.full_like(per_dest[0], cap),
+                                 summed[1]])
         return out, stats
 
     def _push(self, stats):

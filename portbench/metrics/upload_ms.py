@@ -1,0 +1,18 @@
+"""Upload per frame: host ms of the program's 'upload' spans
+(accum/nuscenes_oracle.upload_obs on the upload worker: the wires'
+encode and the pinned host-to-device copies) in the span registry that
+the traced stretch filled (utils/profiling.py), mean over its spans.
+None where the program has no such registry or span."""
+
+
+def _spans():
+    try:
+        from pc_accumulation_lib_tpu_torch.utils import profiling
+        return profiling.snapshot()['spans']
+    except (ImportError, AttributeError):
+        return {}
+
+
+def read(rec):
+    s = _spans().get('upload')
+    return s['total_ms'] / s['n'] if s and s['n'] else None

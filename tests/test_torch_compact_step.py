@@ -40,6 +40,7 @@ from pc_accumulation_lib_tpu_torch.accum import kitti360 as tk3
 from pc_accumulation_lib_tpu_torch.bev import core as tcore
 from pc_accumulation_lib_tpu_torch.dataloaders import synthetic as tsyn
 from pc_accumulation_lib_tpu_torch.ops import sort_raster as tsr
+from pc_accumulation_lib_tpu_torch.utils import profiling
 
 from test_torch_raster import _inputs
 from test_torch_step import _assert_bevs_match, _calib
@@ -213,7 +214,7 @@ def _snapshot(a):
                        g.max_occupied_split, g.sum_occupied_split,
                        g.n_occupied_obs, g.sparse_short_fetches,
                        g._fetch_hint_bytes, g._step_used_max,
-                       g._pending_fetches, g.last_harvest]))
+                       g._pending_fetches, profiling.snapshot()['counters']]))
 
 
 def _same_snapshot(a, b):
@@ -239,13 +240,15 @@ def step_runs():
                                          fetch_group=2), **_cfg(RUNGS))
     jx.sem_bev_generator.use_prepped_raster = True
     jx.sem_bev_generator._prep_interpret = True
+    profiling.reset()
+    tracing = profiling.enable()
     for a in (prod, plain, jx):
         a.integrate([frames[0]])
     before = _snapshot(prod)
     prod.prewarm_rungs()
     prewarm = (before, _snapshot(prod))
     out, futs = [], []
-    with ThreadPoolExecutor(max_workers=1) as ex:
+    with ThreadPoolExecutor(max_workers=1) as ex, tracing:
         for i, f in enumerate(frames[1:]):
             if i == N_STEPS - 2:   # read at every dispatch, not just once
                 prod.sem_bev_generator.raster_compact = False
@@ -259,11 +262,13 @@ def step_runs():
                 out[-2].insert(0, futs[-2].result())
         out[-1].insert(0, futs[-1].result())
     prod.sem_bev_generator.close()
-    return out, prod, plain, prewarm
+    traced = profiling.snapshot()
+    profiling.reset()
+    return out, prod, plain, prewarm, traced
 
 
 def test_step_sparse_grouped_async_matches_plain(step_runs):
-    out, prod, plain, _ = step_runs
+    out, prod, plain, _, traced = step_runs
     for bp, bq, *_ in out:
         assert len(bp) == len(bq) == BEV_NUM
         for sp, sq in zip(bp, bq):
@@ -282,8 +287,16 @@ def test_step_sparse_grouped_async_matches_plain(step_runs):
     assert g.sparse_overflows == h.sparse_overflows == 0
     assert g.max_occupied_split == h.max_occupied_split
     assert g.n_occupied_obs == N_STEPS * BEV_NUM
-    assert 0 < g.last_harvest['wire_bytes']
-    assert g.last_harvest['resolved_by'] in ('dispatch', 'finalize')
+    # Both accumulators' harvests: wire bytes, where each fetch set was
+    # sized, the decode of every sample on the pool.
+    counters, spans = traced['counters'], traced['spans']
+    assert counters['fetch.bytes'] > 0
+    resolved = {k: v for k, v in counters.items()
+                if k.startswith('fetch.resolved_by.')}
+    assert set(resolved) <= {'fetch.resolved_by.dispatch',
+                             'fetch.resolved_by.finalize'}
+    assert sum(resolved.values()) == spans['harvest']['n'] == 2 * N_STEPS
+    assert spans['harvest.decode']['n'] == 2 * N_STEPS * BEV_NUM
     assert {k[1] for k in g._prepped_fns} == {True, False}
 
 
@@ -297,6 +310,6 @@ def test_step_sparse_matches_jax(step_runs):
 
 
 def test_prewarm_rungs_changes_no_state(step_runs):
-    _, prod, _, (before, after) = step_runs
+    _, prod, _, (before, after), _ = step_runs
     _same_snapshot(before, after)
     assert prod._rungs == RUNGS + (49152,)
