@@ -74,6 +74,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = 'pc_accumulation_lib_tpu_torch/csrc/segmented_stats.cu'
 KERNEL_REPLACES = 'pc_accumulation_lib_tpu/ops/pallas_stats.py:353'
 KERNEL2_REPLACES = 'pc_accumulation_lib_tpu/ops/pallas_stats.py:90'
+BN_EPILOGUE_SOURCE = 'pc_accumulation_lib_tpu_torch/csrc/bn_epilogue.cu'
 
 # Bench configuration (the JAX package's bench.py workload, without its
 # remote-link machinery): 376x1408 camera, ~121k points per frame,
@@ -232,7 +233,15 @@ def phase_build():
     ptxas = [ln.strip() for ln in
              path.with_suffix('.log').read_text().splitlines()
              if 'registers' in ln or 'spill' in ln]
-    emit('build', t0, library=os.path.relpath(path, HERE), ptxas=ptxas)
+    from pc_accumulation_lib_tpu_torch.ops import bn_epilogue as be
+    be_path = be.build_library()
+    be.load_library()
+    be_ptxas = [ln.strip() for ln in
+                be_path.with_suffix('.log').read_text().splitlines()
+                if 'registers' in ln or 'spill' in ln]
+    emit('build', t0, library=os.path.relpath(path, HERE), ptxas=ptxas,
+         bn_epilogue_library=os.path.relpath(be_path, HERE),
+         bn_epilogue_ptxas=be_ptxas)
 
 
 def _words(gen, n, dev):
@@ -796,6 +805,237 @@ def phase_kernel2(dev):
     return res
 
 
+# The batch-norm epilogue (ops/bn_epilogue.py) at the oracle's shapes (6
+# cameras of 900x1600; output stride 8 past layer1) and one of the step()
+# path's (376x1408): name -> (N, C, H, W), residual, relu, bf16 out,
+# float32 out. Every variant the model launches: a mid-stage conv3 (both
+# outputs: the next block's convolution and its residual), a stage-end
+# conv3 (bf16 only: the next block has a downsample), conv1/conv2 and the
+# stem (bf16), the downsample (affine, float32) and the head (float32).
+BN_EPILOGUE_SHAPES = {
+    'layer3_conv3': ((6, 1024, 113, 200), True, True, True, True),
+    'layer4_conv3_stage_end': ((6, 2048, 113, 200), True, True, True,
+                               False),
+    'layer1_conv2': ((6, 64, 225, 400), False, True, True, False),
+    'layer1_downsample': ((6, 256, 225, 400), False, False, False, True),
+    'head': ((6, 512, 113, 200), False, True, False, True),
+    'step_layer3_conv3': ((1, 1024, 47, 176), True, True, True, True),
+}
+# Kernel against plain version: each output the rounding of a float32
+# value within BN_EPILOGUE_RTOL (relative and absolute) of the plain
+# version's float32 value (the two fold the affine with other roundings);
+# a bf16 output equal on all but a few elements.
+BN_EPILOGUE_RTOL, BN_EPILOGUE_BF16_EQUAL = 1e-5, 0.999
+# The whole model, inference route (no_grad) against the modules' chain
+# (enable_grad, no parameter asking for a gradient) on one 6-camera
+# 900x1600 frame of the oracle's stream: logits within this share of the
+# chain's largest logit (bf16 roundings that differ carry through later
+# convolutions; 0.080 of 6.16 read on the card before this check), class
+# maps equal on at least BN_EPILOGUE_MODEL_ARGMAX of the pixels.
+BN_EPILOGUE_MODEL_RTOL, BN_EPILOGUE_MODEL_ARGMAX = 0.025, 0.99
+# Batch norms of the full-depth model: one epilogue launch each a forward.
+BN_EPILOGUES_PER_FORWARD = 56
+
+
+class _EpilogueCount:
+    """The batch-norm epilogue's launches over one driven path's loop,
+    from construction to ``check``, against the semseg model's forwards
+    in it (ResNet50DilatedFCN.forward wrapped meanwhile)."""
+
+    def __init__(self):
+        from pc_accumulation_lib_tpu_torch.models import resnet_semseg as rs
+        from pc_accumulation_lib_tpu_torch.ops import bn_epilogue as be
+        self._cls, self._forward, self._fn = (
+            rs.ResNet50DilatedFCN, rs.ResNet50DilatedFCN.forward,
+            be.bn_epilogue)
+        self.forwards = 0
+
+        def counted(model, *args, **kwargs):
+            self.forwards += 1
+            return self._forward(model, *args, **kwargs)
+
+        self._fn.launches = 0
+        self._cls.forward = counted
+
+    def check(self, path):
+        """Stops counting; the path's launches, which must be 56 for each
+        of its forwards (every one takes the inference route)."""
+        self._cls.forward = self._forward
+        n = self._fn.launches
+        check(self.forwards > 0
+              and n == BN_EPILOGUES_PER_FORWARD * self.forwards,
+              f'{path}: {n} epilogue launches in {self.forwards} semseg '
+              f'forwards')
+        return n
+
+
+def _bn_epilogue_case(dev, shape, residual):
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    C = shape[1]
+
+    def rand(n, lo, hi):
+        return torch.rand(n, generator=gen, device=dev) * (hi - lo) + lo
+
+    x = (torch.randn(shape, generator=gen, device=dev) * 2).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    res = (torch.randn(shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last) if residual else None)
+    params = (rand(C, lo=0.5, hi=1.5), rand(C, lo=-0.3, hi=0.3),
+              rand(C, lo=-0.5, hi=0.5), rand(C, lo=0.2, hi=3.0))
+    return x, res, params
+
+
+def _bn_epilogue_bytes(x, residual, bf16_out, f32_out):
+    """Each input byte read once and each output byte written once: x, the
+    residual, the outputs and the four (C,) float32 parameters."""
+    n = x.numel()
+    return (n * (2 + 4 * (residual is not None) + 2 * bf16_out
+                 + 4 * f32_out) + 16 * x.shape[1])
+
+
+def _unfused_chain(x, res, params, relu, bf16_out, f32_out):
+    """The model's chain off the epilogue route, in PyTorch calls: the
+    float32 copy, cuDNN's float32 batch norm, the add, the ReLU, the
+    bf16 cast (the yardstick: library_ms)."""
+    w, b, m, v = params
+    y = torch.nn.functional.batch_norm(x.to(torch.float32), m, v, w, b,
+                                       training=False, eps=1e-5)
+    if res is not None:
+        y = y + res
+    if relu:
+        y = torch.relu(y)
+    return (y.to(torch.bfloat16) if bf16_out else None,
+            y if f32_out else None)
+
+
+def phase_bn_epilogue(dev):
+    """The batch-norm epilogue kernel against its plain version on the
+    card at the oracle's shapes, in bf16: errors, the kernel's device us
+    (CUDA events around back-to-back launches), the wrapper's us, the byte
+    bound at 3.35 TB/s, the plain version's and the unfused PyTorch
+    chain's ms, one device operation per wrapper call."""
+    from pc_accumulation_lib_tpu_torch.ops import bn_epilogue as be
+    t0 = time.perf_counter()
+    lib = be.load_library()
+    res_by_shape = {}
+    for name, (shape, residual, relu, bf16_out, f32_out) in \
+            BN_EPILOGUE_SHAPES.items():
+        x, res, params = _bn_epilogue_case(dev, shape, residual)
+        kw = dict(residual=res, relu=relu, bf16_out=bf16_out,
+                  f32_out=f32_out)
+        got = be.bn_epilogue(x, *params, 1e-5, **kw)
+        ref = be.bn_epilogue_reference(x, *params, 1e-5, **dict(
+            kw, bf16_out=True, f32_out=True))
+        torch.cuda.synchronize()
+        errs = {}
+        tol = BN_EPILOGUE_RTOL * (1 + ref[1].abs())
+        if f32_out:
+            check(bool(((got[1] - ref[1]).abs() <= tol).all()),
+                  f'{name}: float32 output differs')
+            errs['f32_max_abs_err'] = _max_abs(got[1], ref[1])
+        if bf16_out:
+            # Rounding to bf16 is monotonic: a float32 value within tol
+            # of the plain one rounds between these two.
+            g, r = got[0].float(), ref[0].float()
+            lo = (ref[1] - tol).to(torch.bfloat16).float()
+            hi = (ref[1] + tol).to(torch.bfloat16).float()
+            check(bool(((g >= lo) & (g <= hi)).all()),
+                  f'{name}: bf16 output not the rounding of a float32 '
+                  f'value within {BN_EPILOGUE_RTOL} of the plain one')
+            equal = float((g == r).float().mean())
+            check(equal >= BN_EPILOGUE_BF16_EQUAL,
+                  f'{name}: bf16 equal share {equal}')
+            errs.update(bf16_max_abs_err=_max_abs(g, r),
+                        bf16_equal_share=equal)
+            del g, r, lo, hi
+        del got, ref, tol
+        outs = [torch.empty_like(x) if bf16_out else None,
+                torch.empty_like(x, dtype=torch.float32)
+                if f32_out else None]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def raw():
+            lib.bn_epilogue_launch(
+                x.data_ptr(), *(p.data_ptr() for p in params), 1e-5,
+                None if res is None else res.data_ptr(),
+                *(None if o is None else o.data_ptr() for o in outs),
+                x.numel(), x.shape[1], int(relu), stream)
+
+        def wrapper():
+            return be.bn_epilogue(x, *params, 1e-5, **kw)
+
+        device_us = _events_us(raw)
+        wrapper()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TIMING_REPS):
+            wrapper()
+        torch.cuda.synchronize()
+        wrapper_us = (time.perf_counter() - t) * 1e6 / TIMING_REPS
+        graph_ops = _graph_ops(wrapper)
+        check(len(graph_ops) == 1 and 'bn_epilogue_kernel' in graph_ops[0],
+              f'one device operation per call in a CUDA graph, got '
+              f'{graph_ops}')
+        nbytes = _bn_epilogue_bytes(x, res, bf16_out, f32_out)
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        res_by_shape[name] = dict(
+            shape=list(shape), residual=residual, relu=relu,
+            bf16_out=bf16_out, f32_out=f32_out, **errs,
+            device_us=device_us, wrapper_us=wrapper_us, bytes=nbytes,
+            bound_us=bound_us, bound_share=bound_us / device_us,
+            plain_ms=_median_ms(lambda: be.bn_epilogue_reference(
+                x, *params, 1e-5, **kw), reps=10),
+            library_ms=_median_ms(lambda: _unfused_chain(
+                x, res, params, relu, bf16_out, f32_out), reps=10),
+            graph_ops_per_call=graph_ops)
+        del x, res, outs
+    torch.cuda.empty_cache()
+    layer3 = res_by_shape['layer3_conv3']
+    check(layer3['bound_share'] >= 0.6,
+          f'layer3 epilogue at {layer3["bound_share"]:.3f} of its bound')
+    model = _bn_epilogue_model(dev)
+    emit('bn_epilogue', t0, launches=be.bn_epilogue.launches,
+         model=model, **res_by_shape)
+    return res_by_shape
+
+
+def _bn_epilogue_model(dev):
+    """The full-depth bf16 model's inference route against the modules'
+    chain on one 6-camera 900x1600 frame of the oracle's stream (the
+    BN_EPILOGUE_MODEL_* limits): logits' max abs difference and scale,
+    class maps' agreement, each route's epilogue launches."""
+    from pc_accumulation_lib_tpu_torch.dataloaders.synthetic import (
+        SyntheticNuScenesStream)
+    from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
+    from pc_accumulation_lib_tpu_torch.ops import bn_epilogue as be
+    model = SemSegTorch(dev, seed=0).model.requires_grad_(False)
+    frame = SyntheticNuScenesStream(
+        n_frames=1, **dict(ORACLE_STREAM, img_hw=(900, 1600))).frame(0)
+    imgs = torch.from_numpy(np.stack(frame['images'])).to(dev).to(
+        torch.float32)
+    outs, launches = [], []
+    for grad in (False, True):
+        before = be.bn_epilogue.launches
+        with torch.set_grad_enabled(grad):
+            outs.append(model(imgs))
+        torch.cuda.synchronize()
+        launches.append(be.bn_epilogue.launches - before)
+    fused, chain = outs
+    del outs
+    check(launches == [BN_EPILOGUES_PER_FORWARD, 0], launches)
+    scale = float(chain.abs().max())
+    err = _max_abs(fused, chain)
+    agree = float((fused.argmax(-1) == chain.argmax(-1)).float().mean())
+    check(err <= BN_EPILOGUE_MODEL_RTOL * scale,
+          f'model logits {err} apart at a scale of {scale}')
+    check(agree >= BN_EPILOGUE_MODEL_ARGMAX, f'class maps agree on {agree}')
+    del fused, chain, imgs, model
+    torch.cuda.empty_cache()
+    return dict(shape=[6, 900, 1600], logits_max_abs_err=err,
+                logits_scale=scale, argmax_agree=agree,
+                launches_route_chain=launches)
+
+
 def phase_kernel_on_main_path(raster_in):
     """The kernel against the plain version on one raster's sorted rows as
     the main path gave them to the kernel (compact_cap rows)."""
@@ -882,6 +1122,7 @@ def phase_main_path(dev, img_transfer='rgb8', name='main_path'):
                         BEV, use_gt_sem=False, img_transfer=img_transfer)
     torch.cuda.reset_peak_memory_stats()
     ss.segmented_stats_words.launches = 0
+    epilogues = _EpilogueCount()
     accum.integrate([frames[0]])
     torch.cuda.synchronize()
     step_s, occ, kept = [], [], []
@@ -904,9 +1145,11 @@ def phase_main_path(dev, img_transfer='rgb8', name='main_path'):
                      for b in bevs])
     launches = ss.segmented_stats_words.launches
     check(launches == BEV_NUM * N_STEPS, launches)
+    epilogue_launches = epilogues.check(f'step() on {img_transfer}')
     check(min(occ) > 0, occ)
     steady = statistics.median(step_s[1:])
     res = dict(steps=N_STEPS, bev_num=BEV_NUM, launches=launches,
+               epilogue_launches=epilogue_launches,
                step_s=step_s, median_step_s=steady,
                samples_per_s=BEV_NUM / steady,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
@@ -1080,6 +1323,7 @@ def phase_sparse_step_path(dev, main_res):
     torch.cuda.reset_peak_memory_stats()
     ss.segmented_stats_words.launches = 0
     native_decode.decode_sparse_warp.decoded = 0
+    epilogues = _EpilogueCount()
     steps, iter_s = [], []
     profiling.reset()
     ts = time.perf_counter()
@@ -1108,6 +1352,7 @@ def phase_sparse_step_path(dev, main_res):
         gen.prepped_raster = make_raster
     loop_s = time.perf_counter() - ts
     launches = ss.segmented_stats_words.launches
+    epilogue_launches = epilogues.check('sparse step()')
     decoded = native_decode.decode_sparse_warp.decoded
     peak = torch.cuda.max_memory_allocated()
     n = BEV_NUM * N_STEPS
@@ -1160,6 +1405,7 @@ def phase_sparse_step_path(dev, main_res):
     steady = statistics.median(iter_s[1:])
     res = dict(
         steps=N_STEPS, bev_num=BEV_NUM, launches=launches,
+        epilogue_launches=epilogue_launches,
         native_decoded=decoded, iteration_s=iter_s,
         median_iteration_s=steady, main_path_median_step_s=main_res[
             'median_step_s'],
@@ -1315,7 +1561,8 @@ def phase_reference_api_path(dev, frames):
     through obs2sem_vec_space on one accumulator and through integrate on
     another (poses, T_new_prev, the window and the device buffer equal),
     then the semseg wrapper's pred_batch and pred at 376x1408 against
-    predict on the card (class maps equal)."""
+    predict on the card (class maps equal). Returns its batch-norm
+    epilogue launches."""
     from pc_accumulation_lib_tpu_torch.models.semseg import SemSegTorch
     from pc_accumulation_lib_tpu_torch.ops import segmented_stats as ss
     t0 = time.perf_counter()
@@ -1324,6 +1571,7 @@ def phase_reference_api_path(dev, frames):
         _make_accum(dev, semseg, STREAM, ACCUM, ICP, HORIZON, BEV,
                     use_gt_sem=False) for _ in range(2))
     ss.segmented_stats_words.launches = 0
+    epilogues = _EpilogueCount()
     obs_s, integrate_s = [], []
     with contextlib.redirect_stdout(io.StringIO()):
         for f in frames:
@@ -1362,13 +1610,16 @@ def phase_reference_api_path(dev, frames):
     check(np.array_equal(one[0], want1) and np.array_equal(semseg(imgs[1]),
                                                            want1[0]),
           'pred != predict')
+    epilogue_launches = epilogues.check('reference API')
     emit('reference_api_path', t0, frames=len(frames),
          window_start=by_obs.window_start, window_frames=len(by_obs.poses),
          poses_equal=True, stats_kernel_launches=launches,
+         epilogue_launches=epilogue_launches,
          obs2sem_vec_space_s=obs_s, integrate_s=integrate_s,
          pred_batch_shape=list(batch.shape), pred_shape=list(one.shape),
          class_maps_equal=True,
          batch2_vs_batch1_agreement=float(np.mean(want[1] == want1[0])))
+    return epilogue_launches
 
 
 def _runner_accum(dev, semseg, stream_cfg, bev, use_gt_sem, **kw):
@@ -1477,6 +1728,7 @@ def phase_runner_path(dev, words_kernel=True, reference=None,
         accum.integrate = timed_integrate
         ss.segmented_stats_words.launches = 0
         ss.segmented_stats.launches = 0
+        epilogues = _EpilogueCount()
         log = io.StringIO()
         ts = time.perf_counter()
         try:
@@ -1491,6 +1743,7 @@ def phase_runner_path(dev, words_kernel=True, reference=None,
         t_end = time.perf_counter()
         launches = ss.segmented_stats_words.launches
         launches2 = ss.segmented_stats.launches
+        epilogue_launches = epilogues.check(f'KITTI-360 runner, {bev_type}')
         peak = torch.cuda.max_memory_allocated()
         samples = _read_samples(out_dir)
         png = _png_roundtrip(samples, out_dir) if bev_type == 'rgb' else None
@@ -1517,7 +1770,9 @@ def phase_runner_path(dev, words_kernel=True, reference=None,
     loop_s = t_end - ts
     res = dict(route='words' if words_kernel else 'unpacked',
                frames=stats['frames'], samples=n, launches=launches,
-               kernel2_launches=launches2, first_sample_frame=sampled[0],
+               kernel2_launches=launches2,
+               epilogue_launches=epilogue_launches,
+               first_sample_frame=sampled[0],
                first_evicting_frame=full, steady_samples=steady_n,
                steady_s=steady_s, samples_per_s_steady=steady_n / steady_s,
                samples_per_s_from_first_sample=n / from_first_s,
@@ -2103,6 +2358,7 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     torch.cuda.reset_peak_memory_stats()
     sort_raster.split_stats_from_words_flat = capture_stats
     ss.segmented_stats_words.launches = 0
+    epilogues = _EpilogueCount()
     try:
         samples, frame_s, spans, host_ms, loop_s = timed_loop(accum)
     finally:
@@ -2111,6 +2367,7 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
         if ex is not None:
             ex.shutdown()
     launches = ss.segmented_stats_words.launches
+    epilogue_launches = epilogues.check(name)
     peak = torch.cuda.max_memory_allocated()
     n_timed = ORACLE_FRAMES - ORACLE_WARMUP
     check(len(samples) == n_timed, len(samples))
@@ -2154,6 +2411,7 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
     steady = frame_s[1:]
     res = dict(frames=ORACLE_FRAMES, warmup_frames=ORACLE_WARMUP,
                samples=len(samples), launches=launches,
+               epilogue_launches=epilogue_launches,
                launches_per_sample=launches / len(samples),
                samples_per_s_median=1.0 / statistics.median(steady),
                samples_per_s_overall=len(samples) / loop_s,
@@ -2199,15 +2457,18 @@ def phase_oracle_path(dev, img_transfer='rgb8', transfer_dtype='float32',
             pc, n_pad)) if transfer_dtype == 'quantized' else None)
         o_accum = warm_accum()
         ss.segmented_stats_words.launches = 0
+        epilogues = _EpilogueCount()
         o_samples, o_frame_s, _, o_host_ms, o_loop_s = timed_loop(
             o_accum, overlap=True)
         o_launches = ss.segmented_stats_words.launches
+        o_epilogue_launches = epilogues.check(f'{name}, overlapped')
         check(o_launches == len(o_samples), (o_launches, len(o_samples)))
         res.update(
             encode_6cam_ms=enc_ms, encode_6cam_np_ms=enc_np_ms,
             host_encode_obs_ms=obs_ms, pack_points_ms=pack_ms,
             overlapped_upload=dict(
                 samples=len(o_samples), launches=o_launches,
+                epilogue_launches=o_epilogue_launches,
                 samples_per_s_median=1.0 / statistics.median(o_frame_s[1:]),
                 samples_per_s_overall=len(o_samples) / o_loop_s,
                 frame_ms=[s * 1e3 for s in o_frame_s],
@@ -2232,16 +2493,19 @@ def _icp_frame_on_wire(dev, semseg, stream, img_transfer, transfer_dtype):
                                  img_transfer=img_transfer,
                                  transfer_dtype=transfer_dtype)
     ss.segmented_stats_words.launches = 0
+    epilogues = _EpilogueCount()
     with contextlib.redirect_stdout(io.StringIO()):
         for i in range(2):
             icp.integrate([stream.frame(i)])
         bev = icp.generate_bev(present_idx=1, bev_num=1, gen_future=True)[0]
+    epilogue_launches = epilogues.check(f'ICP frame on {img_transfer}')
     step = float(np.linalg.norm(np.diff(icp.get_pose(), axis=0)))
     check(abs(step - stream.step) <= STEP_ATOL, step)
     launches = ss.segmented_stats_words.launches
     check(launches == 1, launches)
     _check_sample(bev, nr.DEFAULT_BEV_PARAMS['pixel_size'])
-    return dict(step_m=step, launches=launches)
+    return dict(step_m=step, launches=launches,
+                epilogue_launches=epilogue_launches)
 
 
 def _nuscenes_runner_accum(dev, semseg, oracle, **wires):
@@ -2288,6 +2552,7 @@ def phase_nuscenes_runner_path(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ss.segmented_stats_words.launches = 0
+    epilogues = _EpilogueCount()
     with tempfile.TemporaryDirectory() as out_dir, \
             contextlib.redirect_stdout(log):
         ts = time.perf_counter()
@@ -2297,6 +2562,7 @@ def phase_nuscenes_runner_path(dev):
         torch.cuda.synchronize()
         integrate_s = time.perf_counter() - ts
         integrate_launches = ss.segmented_stats_words.launches
+        epilogue_launches = epilogues.check('NuScenes runner')
         writer = AsyncPickleWriter()
         ts = time.perf_counter()
         n = nr.write_scene_samples(
@@ -2318,6 +2584,7 @@ def phase_nuscenes_runner_path(dev):
     xs = sorted(b['ego_global_x'] for b in samples.values())
     tracking = _check_tracking(accum)
     res = dict(frames=NUSC_RUNNER_FRAMES, samples=n, launches=launches,
+               epilogue_launches=epilogue_launches,
                integrate_s=integrate_s,
                integrate_ms_per_frame=integrate_s * 1e3 / NUSC_RUNNER_FRAMES,
                sample_write_s=sample_s, samples_per_s_phase2=n / sample_s,
@@ -2331,6 +2598,7 @@ def phase_nuscenes_runner_path(dev):
     # The ICP branch of run() on the stream's first frames.
     icp = _nuscenes_runner_accum(dev, semseg, oracle=False)
     ss.segmented_stats_words.launches = 0
+    epilogues = _EpilogueCount()
     ts = time.perf_counter()
     with contextlib.redirect_stdout(log):
         for i in range(NUSC_ICP_FRAMES):
@@ -2340,6 +2608,7 @@ def phase_nuscenes_runner_path(dev):
     torch.cuda.synchronize()
     icp_s = time.perf_counter() - ts
     icp_launches = ss.segmented_stats_words.launches
+    icp_epilogue_launches = epilogues.check('NuScenes runner, ICP')
     steps = np.linalg.norm(np.diff(icp.get_pose(), axis=0), axis=1)
     step_err = float(np.abs(steps - stream.step).max())
     check(step_err <= STEP_ATOL, steps.tolist())
@@ -2347,6 +2616,7 @@ def phase_nuscenes_runner_path(dev):
     _check_sample(bev, P)
     res.update(icp_frames=NUSC_ICP_FRAMES, icp_max_step_err_m=step_err,
                icp_steps_m=steps.tolist(), icp_launches=icp_launches,
+               icp_epilogue_launches=icp_epilogue_launches,
                icp_ms_per_frame=icp_s * 1e3 / NUSC_ICP_FRAMES)
     emit('nuscenes_runner_path', t0, **res)
     return res
@@ -4381,6 +4651,26 @@ def _kernel_entry(name, replaces, launches, max_abs_err, on_runner,
             'bound_share': t['bound_share']}
 
 
+def _epilogue_entry(by_shape, launches, launches_by_path):
+    """The batch-norm epilogue's entry of the kernels line, at the layer3
+    conv3 shape: ``library_ms`` the unfused PyTorch chain the model ran
+    before it. ``launches`` is main_path's count (step()),
+    ``launches_by_path`` each driven path's, each over its loop alone and
+    held there to 56 a semseg forward."""
+    t = by_shape['layer3_conv3']
+    return {'name': 'bn_epilogue', 'route': 'cuda',
+            'source': BN_EPILOGUE_SOURCE, 'replaces': None,
+            'launches': launches,
+            'launches_by_path': launches_by_path,
+            'max_abs_err': max(v.get('f32_max_abs_err', 0.0)
+                               for v in by_shape.values()),
+            'ms': t['device_us'] / 1e3, 'plain_ms': t['plain_ms'],
+            'bound_ms': t['bound_us'] / 1e3, 'bound_by': 'bytes',
+            'library_ms': t['library_ms'], 'device_us': t['device_us'],
+            'wrapper_us': t['wrapper_us'], 'bound_us': t['bound_us'],
+            'bound_share': t['bound_share']}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4391,10 +4681,12 @@ def main():
     phase_build()
     kern = phase_kernel(dev)
     kern2 = phase_kernel2(dev)
+    epilogue = phase_bn_epilogue(dev)
     main_res, raster_in, main_bevs, frames, accum = phase_main_path(dev)
     wire = phase_wire_path(dev, main_bevs, frames, accum)
     del accum
-    phase_reference_api_path(dev, frames[:REFERENCE_API_FRAMES])
+    reference_api_epilogues = phase_reference_api_path(
+        dev, frames[:REFERENCE_API_FRAMES])
     del frames
     on_path = phase_kernel_on_main_path(raster_in)
     del raster_in
@@ -4498,7 +4790,26 @@ def main():
                       {'kitti360_runner_unpacked':
                        runner2['kernel2_launches'],
                        'step_sparse_compact_unpacked':
-                       on_sparse['compact_unpacked_kernel2_launches']})]}),
+                       on_sparse['compact_unpacked_kernel2_launches']}),
+        _epilogue_entry(
+            epilogue, main_res['epilogue_launches'],
+            {'step': main_res['epilogue_launches'],
+             'step_yuv420h': wire['epilogue_launches'],
+             'reference_api': reference_api_epilogues,
+             'step_sparse': sparse['epilogue_launches'],
+             'kitti360_runner': runner['epilogue_launches'],
+             'kitti360_runner_unpacked': runner2['epilogue_launches'],
+             'kitti360_runner_rgb': rgb_runner['epilogue_launches'],
+             'nuscenes_oracle': oracle['epilogue_launches'],
+             'nuscenes_oracle_wire': oracle_wire['epilogue_launches'],
+             'nuscenes_oracle_wire_overlapped':
+                 oracle_wire['overlapped_upload']['epilogue_launches'],
+             'nuscenes_runner_icp_wire':
+                 oracle_wire['icp_frame']['epilogue_launches'],
+             'nuscenes_oracle_sparse': oracle_sparse['epilogue_launches'],
+             'nuscenes_runner': nusc_runner['epilogue_launches'],
+             'nuscenes_runner_icp': nusc_runner['icp_epilogue_launches']})
+    ]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

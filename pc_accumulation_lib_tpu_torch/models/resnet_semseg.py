@@ -13,6 +13,18 @@ what pc_accumulation_lib_tpu.models.onnx_port.export_named_tensors emits.
 batch norms, ReLUs, residual adds and the classifier run in float32, as
 the JAX model does. Weights stay float32, so their gradients are float32
 too (models/train.py).
+
+Inference of a bfloat16 model (eval mode, grad disabled, no model axis:
+all observable in the forward) takes the batch-norm epilogue route: after
+each convolution one ops/bn_epilogue pass computes the batch norm, the
+residual add and the ReLU in float32 and writes bf16 where only a
+convolution reads the result, float32 where a residual add or the
+classifier does, or both. The precision is the same as on the other
+route; only the float32 order of the affine differs. Training, the
+tensor-parallel forward, anything under enable_grad and a float32 model
+run the modules' forwards as written (``_BN``'s flax statistics
+included). Each epilogue counts ``semseg.bn_epilogues`` while tracing is
+on (utils/profiling.py): 56 a forward of the full-depth model.
 """
 from __future__ import annotations
 
@@ -22,7 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pc_accumulation_lib_tpu_torch.ops.bn_epilogue import bn_epilogue
 from pc_accumulation_lib_tpu_torch.parallel import tensor_parallel as tp
+from pc_accumulation_lib_tpu_torch.utils import profiling
 
 NUM_CLASSES = 19
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -94,6 +108,26 @@ class _BN(nn.BatchNorm2d):
         return d * scale[None, :, None, None] + self.bias[None, :, None, None]
 
 
+def _epilogue_route(module, conv, ax) -> bool:
+    """True where ``module``'s forward takes the batch-norm epilogue
+    route (module docstring): eval mode, grad disabled, no model axis, and
+    ``conv`` computes in bfloat16."""
+    return (ax is None and not module.training
+            and not torch.is_grad_enabled()
+            and conv.compute_dtype == torch.bfloat16)
+
+
+def _conv_bn(conv, bn, x, residual=None, relu=True, bf16=True, f32=False):
+    """``conv`` then ``bn`` as one batch-norm epilogue, with the residual
+    add and the ReLU: (bf16, float32) channels-last outputs, None where
+    not asked for."""
+    y = conv(x).contiguous(memory_format=torch.channels_last)
+    profiling.count('semseg.bn_epilogues')
+    return bn_epilogue(y, bn.weight, bn.bias, bn.running_mean,
+                       bn.running_var, bn.eps, residual=residual, relu=relu,
+                       bf16_out=bf16, f32_out=f32)
+
+
 class Bottleneck(nn.Module):
     """ResNet v1 bottleneck with optional stride/dilation. The forward's
     ``ax`` is the model's ModelAxis when it is cut, else None
@@ -133,6 +167,22 @@ class Bottleneck(nn.Module):
             residual = bn(tp.apply(conv, full, into))
         return F.relu(y + residual)
 
+    def forward_epilogue(self, xb, xf, f32_out: bool):
+        """The block on the epilogue route: ``xb`` its input in bf16,
+        ``xf`` in float32 (None where the downsample makes the residual).
+        Returns the output in bf16 and, with ``f32_out``, in float32 (for
+        the next block's residual add), else None."""
+        y = _conv_bn(self.conv1, self.bn1, xb)[0]
+        y = _conv_bn(self.conv2, self.bn2, y)[0]
+        if self.downsample is None:
+            residual = xf
+        else:
+            conv, bn = self.downsample
+            residual = _conv_bn(conv, bn, xb, relu=False, bf16=False,
+                                f32=True)[1]
+        return _conv_bn(self.conv3, self.bn3, y, residual=residual,
+                        f32=f32_out)
+
 
 class _Backbone(nn.Module):
     def __init__(self, stage_sizes, dt):
@@ -156,11 +206,28 @@ class _Backbone(nn.Module):
             setattr(self, f'layer{si + 1}', nn.Sequential(*blocks))
 
     def forward(self, x, ax=None):
+        """The backbone's features: float32, or bf16 on the epilogue route
+        (what the head's convolution reads)."""
+        if _epilogue_route(self, self.stem[0], ax):
+            return self._forward_epilogue(x)
         x = F.max_pool2d(self.stem(x), 3, stride=2, padding=1)
         for si in range(4):
             for block in getattr(self, f'layer{si + 1}'):
                 x = block(x, ax)
         return x
+
+    def _forward_epilogue(self, x):
+        for i in range(0, len(self.stem), 3):
+            x = _conv_bn(self.stem[i], self.stem[i + 1], x)[0]
+        # Pooling the bf16 copy equals casting the pooled float32 one:
+        # rounding is monotonic.
+        xb, xf = F.max_pool2d(x, 3, stride=2, padding=1), None
+        blocks = [b for si in range(4)
+                  for b in getattr(self, f'layer{si + 1}')]
+        for block, nxt in zip(blocks, blocks[1:] + [None]):
+            xb, xf = block.forward_epilogue(
+                xb, xf, f32_out=nxt is not None and nxt.downsample is None)
+        return xb
 
 
 class _ConvModule(nn.Module):
@@ -171,6 +238,9 @@ class _ConvModule(nn.Module):
         self.bn = _BN(out_ch)
 
     def forward(self, x, ax=None):
+        if _epilogue_route(self, self.conv, ax):
+            # float32 out: the classifier computes in float32.
+            return _conv_bn(self.conv, self.bn, x, bf16=False, f32=True)[1]
         return F.relu(self.bn(tp.conv(self.conv, x, ax)))
 
 
@@ -195,7 +265,12 @@ class ResNet50DilatedFCN(nn.Module):
     mesh axis; the forward is then tensor parallel
     (parallel/tensor_parallel.py). ``mesh``: None, or the ('data',
     'model') mesh that models/train.make_train_setup trains it on; the
-    rank at its coordinate 0 writes its files (models/checkpoint.py)."""
+    rank at its coordinate 0 writes its files (models/checkpoint.py).
+
+    Inference of a bfloat16 model (eval, grad disabled, no model axis)
+    runs one batch-norm epilogue (ops/bn_epilogue.py) after each
+    convolution; everything else runs the modules' float32 batch norms,
+    ReLUs and residual adds (module docstring)."""
 
     model_axis = None
     mesh = None

@@ -15,53 +15,20 @@ launch raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from pc_accumulation_lib_tpu_torch.utils import native
+
 _SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'segmented_stats.cu'
-_BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lib = None
 
 
 def build_library() -> Path:
-    """Compile the kernel library with nvcc unless this source's build
-    exists (the file name carries a hash of the source and the flags, so
-    an edit rebuilds). The compiler's report (registers, shared memory,
-    spills) is kept beside it as ``.log``. Raises if nvcc is missing or
-    fails."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
-    h.update(' '.join(_NVCC_FLAGS).encode())
-    out = _BUILD_DIR / f'segmented_stats_{h.hexdigest()[:16]}.so'
-    if out.exists():
-        return out
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA '
-                           'toolkit to build the segmented-stats kernel')
-    nvcc = os.path.join(CUDA_HOME, 'bin', 'nvcc')
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, '-o', tmp, str(_SOURCE)],
-                              capture_output=True, text=True)
-        out.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stdout}{proc.stderr}')
-        os.replace(tmp, out)   # atomic: concurrent builders never see half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    """Build the kernel library (utils/native.build_cuda_library)."""
+    return native.build_cuda_library(_SOURCE)
 
 
 def load_library():
